@@ -1,9 +1,11 @@
-"""ecRad-TPU: a TPU-native atmospheric radiation framework.
+"""An atmospheric radiation scheme in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation with the capabilities of the
-ECMWF ecRad radiation scheme (gas/cloud/aerosol optics + five radiative
-transfer solvers), designed for TPU hardware: columns shard over device
-meshes, g-points fill vector lanes, level recurrences are parallel scans.
+A from-scratch JAX implementation with the capabilities of the ECMWF
+ecRad radiation scheme (gas/cloud/aerosol optics + five radiative
+transfer solvers). Columns shard over a device mesh, the spectral
+(g-point) and column axes batch every operation, and the level
+recurrences are scans (on a GPU, the adding sweeps are one Pallas
+kernel per solve: ops/adding_gpu.py).
 """
 
 __version__ = "0.1.0"

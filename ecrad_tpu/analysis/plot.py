@@ -32,7 +32,11 @@ def plot_output(input_nc: str, output_nc: str, dstfile: str,
                 reference_nc: Optional[str] = None) -> None:
     """Multi-panel overview: TOA/surface fluxes, heating rates, CRE
     (ecradplot/plot.py:1146 plot_output / :1303 compare_output)."""
-    import matplotlib
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError("plotting needs the matplotlib package, which "
+                          "is not installed") from e
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 

@@ -1,7 +1,7 @@
-"""Configuration for the ecRad-TPU radiation scheme.
+"""Configuration for the radiation scheme.
 
 Mirrors the reference's config_type + namelist reader
-(/root/reference/radiation/radiation_config.F90:147-543, :558-912) so that
+(radiation/radiation_config.F90:147-543, :558-912) so that
 reference namelists (e.g. test/ifs/configCY47R1.nam) can be ingested
 directly. The config is a plain (hashable-by-id) Python dataclass used as a
 *static* argument to jitted functions — all members are Python scalars,
@@ -14,6 +14,8 @@ import re
 from dataclasses import dataclass, field, replace
 from enum import IntEnum
 from typing import Optional, Tuple
+
+from .paths import data_dir
 
 
 class Solver(IntEnum):
@@ -226,8 +228,8 @@ class RadiationConfig:
     iverbose: int = 1
     iverbosesetup: int = 2
 
-    # Data files
-    directory_name: str = "."
+    # Data files (the data root; see paths.py)
+    directory_name: str = field(default_factory=data_dir)
     ice_optics_override_file_name: str = ""
     liq_optics_override_file_name: str = ""
     aerosol_optics_override_file_name: str = ""
@@ -235,7 +237,7 @@ class RadiationConfig:
 
     use_spectral_solar_scaling: bool = False
 
-    # Numerics (TPU-specific): compute dtype for the RT solve.
+    # Numerics: compute dtype for the RT solve.
     dtype: str = "float32"
 
     # ----- consolidated (derived) paths -----

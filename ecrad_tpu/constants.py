@@ -1,4 +1,4 @@
-"""Physical constants for the ecRad-TPU radiation framework.
+"""Physical constants for the radiation scheme.
 
 Reference parity: /root/reference/radiation/radiation_constants.F90 and
 /root/reference/ifsaux/yomcst.F90 (IFS values).

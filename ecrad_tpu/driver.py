@@ -4,8 +4,9 @@ Reference parity: driver/ecrad_driver.F90 — reads the two namelists, the
 NetCDF input, runs the radiation scheme (with an nrepeat benchmarking
 loop and wall-clock timing) and writes the flux output. Instead of the
 reference's OpenMP column-block loop, columns are sharded over all local
-devices with jax.sharding (data parallel — columns are embarrassingly
-parallel, SURVEY §2.8).
+devices, one program per device (parallel/sharding.py column_parallel;
+columns are embarrassingly parallel, SURVEY §2.8). The compile cache is
+$JAX_COMPILATION_CACHE_DIR, else <repo>/.jax_cache.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from .config import (load_config_from_namelist,
 from .interface import radiation, setup_radiation
 from .io.input_reader import read_input
 from .io.output import save_fluxes
-from .parallel.sharding import shard_columns
+from .parallel.sharding import column_mesh, column_parallel, shard_columns
+from .paths import enable_compile_cache
 
 
 def _lowest_level_extinction(setup, single_level, thermo, gas):
@@ -61,7 +63,7 @@ def _lowest_level_extinction(setup, single_level, thermo, gas):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="ecrad_tpu",
-        description="TPU-native ecRad: offline radiation driver")
+        description="ecRad in JAX: offline radiation driver")
     ap.add_argument("namelist")
     ap.add_argument("input_nc")
     ap.add_argument("output_nc")
@@ -70,6 +72,7 @@ def main(argv=None):
                          "(driver/ecrad_driver.F90:116-117, 4th arg)")
     ap.add_argument("--no-jit", action="store_true")
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
     config = load_config_from_namelist(args.namelist)
     driver_config = load_driver_config_from_namelist(args.namelist)
@@ -161,9 +164,13 @@ def main(argv=None):
             print("Wrote radiative_properties.nc")
 
     # shard columns across local devices (pure data parallelism)
-    if driver_config.do_parallel and len(jax.devices()) > 1:
+    mesh = None
+    ndev = len(jax.devices())
+    if (driver_config.do_parallel and ndev > 1
+            and single_level.ncol % ndev == 0):
+        mesh = column_mesh()
         single_level, thermo, gas, cloud, aerosol = shard_columns(
-            (single_level, thermo, gas, cloud, aerosol))
+            (single_level, thermo, gas, cloud, aerosol), mesh)
 
     if surface is not None:
         # Fold the tiled surface into effective boundary conditions
@@ -190,7 +197,12 @@ def main(argv=None):
     if driver_config.column_block_size > 0:
         from .parallel.scaling import chunk_columns
         run = chunk_columns(run, driver_config.column_block_size)
-    fn = run if args.no_jit else jax.jit(run)
+    if args.no_jit:
+        fn = run
+    elif mesh is not None:
+        fn = column_parallel(run, mesh)
+    else:
+        fn = jax.jit(run)
 
     flux = None
     for jrepeat in range(max(driver_config.nrepeat, 1)):

@@ -137,7 +137,7 @@ def get_albedos(setup: RadiationSetup, single_level: SingleLevel):
 def _indexed_band_sum(flux_g, band_from_g, nbands):
     """Sum per-g values into bands: (ncol, ..., ng) -> (ncol, ..., nb).
 
-    One-hot matmul (MXU-friendly; radiation_flux.F90:518 indexed_sum)."""
+    One-hot matmul (radiation_flux.F90:518 indexed_sum)."""
     onehot = jnp.asarray(
         np.eye(nbands, dtype=np.float32)[:, band_from_g])  # (nb, ng)
     return jnp.einsum("...g,bg->...b", flux_g, onehot,

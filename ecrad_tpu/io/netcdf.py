@@ -21,6 +21,17 @@ def _is_hdf5(path: str) -> bool:
         return f.read(8) == b"\x89HDF\r\n\x1a\n"
 
 
+def _h5py():
+    """h5py, imported only for NetCDF4 (HDF5) files."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "NetCDF4 (HDF5) files need the h5py package, which is not "
+            "installed; classic NetCDF3 files need only scipy") from e
+    return h5py
+
+
 class NetcdfFile:
     """Read-only NetCDF file with case-insensitive variable lookup."""
 
@@ -31,8 +42,7 @@ class NetcdfFile:
         self._h5 = None
         self._sp = None
         if _is_hdf5(path):
-            import h5py
-            self._h5 = h5py.File(path, "r")
+            self._h5 = _h5py().File(path, "r")
         else:
             from scipy.io import netcdf_file
             self._sp = netcdf_file(path, "r", mmap=False)
@@ -190,7 +200,7 @@ def _write_hdf5(path, dims, variables, attrs, global_attrs,
     """NetCDF4-compatible HDF5 writer (h5py): dimension-scale datasets
     attached to every variable axis, gzip deflate + byte shuffle.
     Readable by netCDF4/xarray and by our own NetcdfFile reader."""
-    import h5py
+    h5py = _h5py()
     attrs = attrs or {}
     comp = dict(compression="gzip",
                 compression_opts=int(max(0, min(9, deflate_level))),

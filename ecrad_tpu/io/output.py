@@ -113,7 +113,7 @@ def save_fluxes(path: str, flux: Flux,
 
     write_netcdf(path, dims, variables, attrs,
                  global_attrs={"title":
-                               "Radiative fluxes from ecRad-TPU"},
+                               "Radiative fluxes from ecRad (JAX)"},
                  **nc_kwargs)
 
 
@@ -160,7 +160,7 @@ def save_inputs(path: str, single_level, thermo, gas, cloud,
         add("aerosol_mmr", ("column", "level", "aerosol_type"),
             aerosol.mixing_ratio)
     write_netcdf(path, dims, variables,
-                 global_attrs={"title": "ecRad-TPU scheme inputs"})
+                 global_attrs={"title": "ecRad (JAX) scheme inputs"})
 
 
 def save_radiative_properties(path: str, setup, single_level, thermo,
@@ -202,7 +202,7 @@ def save_radiative_properties(path: str, setup, single_level, thermo,
     add("incoming_sw", ("column", "g_sw"), go.incoming_sw)
     write_netcdf(path, dims, variables,
                  global_attrs={"title":
-                               "ecRad-TPU per-g radiative properties"})
+                               "ecRad (JAX) per-g radiative properties"})
 
 
 def save_surface_fluxes(path: str, surface_flux) -> None:
@@ -243,4 +243,4 @@ def save_surface_fluxes(path: str, surface_flux) -> None:
 
     write_netcdf(path, dims, variables, attrs,
                  global_attrs={"title":
-                               "Surface fluxes from ecRad-TPU"})
+                               "Surface fluxes from ecRad (JAX)"})

@@ -1,4 +1,3 @@
-from .gather_interp import (EtaSection, Section, eval_sections,
-                            use_pallas_default)
+from .gather_interp import EtaSection, Section, eval_sections
 
-__all__ = ["EtaSection", "Section", "eval_sections", "use_pallas_default"]
+__all__ = ["EtaSection", "Section", "eval_sections"]

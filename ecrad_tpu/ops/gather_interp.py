@@ -1,40 +1,22 @@
-"""Weighted table-row interpolation as a Pallas TPU kernel.
+"""Weighted table-row interpolation: the RRTMG k-table lookups.
 
 The RRTMG taumol stage is dominated by expressions of the form
 
-    out[cell, g] = sum_k  w_k[cell] * TABLE_s(k)[row_k[cell], g]
+    out[g, cell] = sum_k  w_k[cell] * TABLE_s(k)[row_k[cell], g]
 
 (k-table corner interpolation, water-vapour continuum, minor gases,
-Planck fractions; e.g. ifsrrtm/rrtm_taumol1.F90:199-283). XLA lowers the
-per-cell dynamic row lookup to a serial gather (~9 M rows/s on TPU
-regardless of row width), which made gas optics ~100x slower than its
-bandwidth bound. This op reformulates each band's lookups as a sparse
-one-hot matrix product evaluated on the MXU:
-
-    out (G, N-tile) = TABLE^T (G, R) @ W (R, N-tile)
-
-where W is built in VMEM from the row indices/weights with iota
-comparisons (never materialized in HBM). Orientation matters: cells fill
-the 128-lane axis (no padding) and the band's few g-points sit in
-sublanes, so neither operand nor result is padded to 128 g-lanes.
-
-A band's different lookup tables (k-tables, continuum, minor gas) are
-"sections" stacked along the row axis of one concatenated table so the
-whole band costs a single kernel launch.
-
-The pure-JAX fallback (jnp.take) implements identical semantics for
-CPU/testing.
+Planck fractions; e.g. ifsrrtm/rrtm_taumol1.F90:199-283). A band's
+lookups are a list of sections, each a table plus per-cell rows and
+weights; `eval_sections` evaluates them as row gathers (`jnp.take`)
+and a weighted sum. On the GPU a gather is a native memory operation
+and the tables (a few MB in all) stay in L2.
 """
 from __future__ import annotations
 
-import functools
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Sequence
 
-import jax
 import jax.numpy as jnp
 import numpy as np
-
-_LANE = 128
 
 
 class Section(NamedTuple):
@@ -55,18 +37,9 @@ class EtaSection(NamedTuple):
     RRTMG's binary-species (eta) lookups touch rows r = grid*R2 + eta
     with weights that factor exactly as an outer product
     w(grid_off, eta_off) = gw[grid_off] * ew[eta_off] per family
-    (jp/jt corner x eta 3-point scheme). Flattened into a plain Section
-    this costs K = n_go * n_eo one-hot compares over R1*R2 rows — the
-    dominant VPU cost of the whole gas-optics stage (e.g. 16 x 585 for
-    an LW eta band). Exploiting the separability, the kernel builds one
-    weighted one-hot over R1 (A) and one over R2 (B) per family and
-    contracts T in two stages:
-
-        M = reshape(T, (R1, R2*G))^T @ A     (MXU)
-        out += sum_r2 B[r2] * M[r2*G:(r2+1)*G]   (VPU)
-
-    i.e. ~(n_fam * n_go * R1 + n_fam * n_eo * R2) compares instead of
-    ~(n_fam * n_go * n_eo * R1 * R2 / ...) — 14-28x less one-hot work.
+    (jp/jt corner x eta 3-point scheme). It is evaluated as the
+    equivalent plain Section over the flattened (R1*R2, G) table
+    (_eta_to_plain): n_go * n_eo lookups per family.
 
     Per family f: grids[f] (N,) int32 base grid index; grid_terms[f] a
     list of (static_offset, weight (N,)); etas[f] (N,) int32 base eta
@@ -77,10 +50,6 @@ class EtaSection(NamedTuple):
     grid_terms: Sequence[Sequence]
     etas: Sequence[jnp.ndarray]
     eta_terms: Sequence[Sequence]
-
-
-def use_pallas_default() -> bool:
-    return jax.default_backend() == "tpu"
 
 
 def _eta_to_plain(sec: EtaSection) -> Section:
@@ -97,9 +66,12 @@ def _eta_to_plain(sec: EtaSection) -> Section:
     return Section(tab.reshape(r1 * r2, g), rows, weights)
 
 
-def _eval_sections_reference(sections: List[Section], g: int,
-                             dtype) -> jnp.ndarray:
-    """jnp.take fallback, output (G, N)."""
+def eval_sections(sections: List[Section],
+                  dtype=jnp.float32) -> jnp.ndarray:
+    """Sum of the sections' weighted row lookups, (G, N).
+
+    Accepts a mix of plain Sections and EtaSections; all must share the
+    table's trailing (g) dimension. Rows are clipped to the table."""
     out = None
     for sec in sections:
         if isinstance(sec, EtaSection):
@@ -110,185 +82,3 @@ def _eval_sections_reference(sections: List[Section], g: int,
                             axis=0).T * w[None, :]
             out = term if out is None else out + term
     return out
-
-
-def _pallas_kernel(meta, tile, r_total, g, n_eta_tables):
-    from jax.experimental import pallas as pl  # noqa: F401
-
-    def kernel(*refs):
-        # refs order: [*per-section inputs, *eta tables, plain table
-        # (if any plain sections), out]
-        out_ref = refs[-1]
-        has_plain = any(m[0] == "plain" for m in meta)
-        tab_ref = refs[-2] if has_plain else None
-        hi = len(refs) - 1 - (1 if has_plain else 0)
-        eta_tab_refs = refs[hi - n_eta_tables:hi]
-        pieces = []
-        eta_acc = None
-        idx = 0
-        for m in meta:
-            if m[0] == "plain":
-                _, k_s, r_s = m
-                rows_ref = refs[idx]
-                w_ref = refs[idx + 1]
-                idx += 2
-                iot = jax.lax.broadcasted_iota(jnp.int32, (r_s, tile), 0)
-                w_acc = jnp.zeros((r_s, tile), jnp.float32)
-                for k in range(k_s):
-                    w_acc = w_acc + jnp.where(
-                        iot == rows_ref[k, :][None, :],
-                        w_ref[k, :][None, :], 0.0)
-                pieces.append(w_acc)
-            else:
-                _, r1, r2, fams, tab_idx = m
-                etab_ref = eta_tab_refs[tab_idx]      # (r2*g, r1)
-                iot1 = jax.lax.broadcasted_iota(jnp.int32, (r1, tile), 0)
-                iot2 = jax.lax.broadcasted_iota(jnp.int32, (r2, tile), 0)
-                for (go_offs, eo_offs) in fams:
-                    grid_ref = refs[idx]
-                    gw_ref = refs[idx + 1]
-                    eta_ref = refs[idx + 2]
-                    ew_ref = refs[idx + 3]
-                    idx += 4
-                    A = jnp.zeros((r1, tile), jnp.float32)
-                    base1 = grid_ref[0, :][None, :]
-                    for i, go in enumerate(go_offs):
-                        A = A + jnp.where(iot1 == base1 + go,
-                                          gw_ref[i, :][None, :], 0.0)
-                    M = jax.lax.dot_general(
-                        etab_ref[:], A, (((1,), (0,)), ((), ())),
-                        precision=jax.lax.Precision.HIGHEST,
-                        preferred_element_type=jnp.float32)
-                    B = jnp.zeros((r2, tile), jnp.float32)
-                    base2 = eta_ref[0, :][None, :]
-                    for i, eo in enumerate(eo_offs):
-                        B = B + jnp.where(iot2 == base2 + eo,
-                                          ew_ref[i, :][None, :], 0.0)
-                    # unrolled static slices (contiguous sublane groups)
-                    # instead of a 3-D reshape + cross-sublane reduce,
-                    # which Mosaic lowers poorly
-                    contrib = None
-                    for j in range(r2):
-                        term = M[j * g:(j + 1) * g] * B[j, :][None, :]
-                        contrib = term if contrib is None \
-                            else contrib + term
-                    eta_acc = contrib if eta_acc is None \
-                        else eta_acc + contrib
-        if pieces:
-            w_full = pieces[0] if len(pieces) == 1 else jnp.concatenate(
-                pieces, axis=0)
-            plain = jax.lax.dot_general(
-                tab_ref[:], w_full, (((1,), (0,)), ((), ())),
-                precision=jax.lax.Precision.HIGHEST,
-                preferred_element_type=jnp.float32)
-            out_ref[:] = plain if eta_acc is None else plain + eta_acc
-        else:
-            out_ref[:] = eta_acc
-
-    return kernel
-
-
-def _eval_sections_pallas(sections: List[Section], g: int, n: int,
-                          dtype, tile: int) -> jnp.ndarray:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_pad = -(-n // tile) * tile
-
-    def padded(x):
-        return jnp.pad(x, ((0, 0), (0, n_pad - n))) if n_pad != n else x
-
-    meta = []
-    inputs = []
-    in_specs = []
-    tabs = []
-    eta_tables = []
-
-    def vec_spec(k_s):
-        return pl.BlockSpec((k_s, tile), lambda i: (0, i),
-                            memory_space=pltpu.VMEM)
-
-    for sec in sections:
-        if isinstance(sec, EtaSection):
-            tab = np.asarray(sec.table, np.float32)    # (R1, R2, G)
-            r1, r2, gs = tab.shape
-            fams = []
-            for fam in range(len(sec.grids)):
-                go_offs = tuple(o for o, _ in sec.grid_terms[fam])
-                eo_offs = tuple(o for o, _ in sec.eta_terms[fam])
-                grid = padded(sec.grids[fam].astype(jnp.int32)[None])
-                gw = padded(jnp.stack(
-                    [w.astype(jnp.float32)
-                     for _, w in sec.grid_terms[fam]]))
-                eta = padded(sec.etas[fam].astype(jnp.int32)[None])
-                ew = padded(jnp.stack(
-                    [w.astype(jnp.float32)
-                     for _, w in sec.eta_terms[fam]]))
-                inputs.extend([grid, gw, eta, ew])
-                in_specs.extend([vec_spec(1), vec_spec(len(go_offs)),
-                                 vec_spec(1), vec_spec(len(eo_offs))])
-                fams.append((go_offs, eo_offs))
-            meta.append(("eta", r1, r2, fams, len(eta_tables)))
-            # (R2*G, R1): rows indexed (r2-major, g-minor), matching the
-            # kernel's reshape(r2, g, tile)
-            eta_tables.append(jnp.asarray(
-                tab.reshape(r1, r2 * gs).T))
-        else:
-            tab = np.asarray(sec.table, np.float32)
-            r_s = tab.shape[0]
-            k_s = len(sec.rows)
-            rows = padded(jnp.stack(
-                [jnp.clip(r, 0, r_s - 1).astype(jnp.int32)
-                 for r in sec.rows]))                  # (K_s, N)
-            ws = padded(jnp.stack([w.astype(jnp.float32)
-                                   for w in sec.weights]))
-            meta.append(("plain", k_s, r_s))
-            inputs.extend([rows, ws])
-            in_specs.extend([vec_spec(k_s), vec_spec(k_s)])
-            tabs.append(tab.T)                          # (G, R_s)
-
-    extra = []
-    if tabs:
-        table_t = jnp.asarray(np.concatenate(tabs, axis=1))  # (G, R_tot)
-        r_total = table_t.shape[1]
-    else:
-        table_t = None
-        r_total = 0
-    for et in eta_tables:
-        extra.append(et)
-        in_specs.append(pl.BlockSpec(et.shape, lambda i: (0, 0),
-                                     memory_space=pltpu.VMEM))
-    if table_t is not None:
-        extra.append(table_t)
-        in_specs.append(pl.BlockSpec((g, r_total), lambda i: (0, 0),
-                                     memory_space=pltpu.VMEM))
-
-    kernel = _pallas_kernel(meta, tile, r_total, g, len(eta_tables))
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((g, tile), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((g, n_pad), jnp.float32),
-    )(*inputs, *extra)
-    return out[:, :n].astype(dtype)
-
-
-def eval_sections(sections: List[Section], n: int,
-                  use_pallas: Optional[bool] = None,
-                  tile: int = 512, dtype=jnp.float32) -> jnp.ndarray:
-    """Evaluate sum of weighted row-lookups. Returns (G, N).
-
-    Accepts a mix of plain Sections and EtaSections; all must share the
-    table's trailing (g) dimension.
-    """
-    g = int(np.asarray(sections[0].table).shape[-1])
-    if use_pallas is None:
-        # Mosaic lowers the kernel in f32; float64 (x64 validation runs)
-        # uses the fallback
-        use_pallas = (use_pallas_default()
-                      and jnp.dtype(dtype) != jnp.float64)
-    if use_pallas:
-        return _eval_sections_pallas(sections, g, n, dtype, tile)
-    return _eval_sections_reference(sections, g, dtype)

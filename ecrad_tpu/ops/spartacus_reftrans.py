@@ -1,42 +1,25 @@
-"""Fused SPARTACUS per-layer reflectance/transmittance Pallas kernels.
+"""SPARTACUS per-layer reflectance/transmittance, all levels at once.
 
-The Gamma assembly -> Pade-7 matrix exponential -> reflectance/
-transmittance solve pipeline was the binding cost of both SPARTACUS
-solvers when expressed as XLA ops inside the level scan: every one of
-the ~40 HLO fusions in the chain round-trips its (6, 6, ng, ncol)
-operands through HBM (~0.55 GB per cloudy level; 56 ms of the 143 ms
-SW solver at 512 columns, measured with tools/profile_ops.py). Inside
-one Pallas kernel the whole pipeline lives in VMEM: HBM traffic
-collapses to the packed per-cell inputs and the stacked output rows
-(one read + one write per cell), and the expm squarings become pure
-VPU compute with a STATIC count derived from the capped Gamma norms
-(od <= max_cloud_od, transfer rates <= max_3d_transfer_rate, od/mu0
-<= MAX_OD_OVER_MU0_3D), so no data-dependent while_loop is needed.
-
-The kernels also evaluate the Meador-Weaver fallback and perform the
-use3d / clear-layer selection, so the sequential adding scans consume
-finished R/T/(RD/TD/TDD | SU/SD) histories. Grid: (nlev, cell tiles);
-a tile with no 3D-treated point skips the expm pipeline (pl.when) and
-only pays the elementwise fallback — preserving the per-level
-adaptivity that made level-blocked XLA variants lose (CLAUDE.md).
+The per-cell pipeline: Gamma assembly -> Pade matrix exponential
+(adding-doubling form, solvers/matrix.py) -> reflectance/transmittance
+solves, the Meador-Weaver two-stream fallback where a point is not
+3D-treated, and the clear-layer selection, so the sequential adding
+scans in solvers/spartacus_{sw,lw}.py consume finished R/T/(RD/TD/TDD
+| SU/SD) histories. It runs one level at a time inside a lax.scan; a
+level with no 3D-treated point skips the expm pipeline (lax.cond).
 
 Reference parity: radiation_spartacus_sw.F90:708-830 (Gamma assembly
 + expm -> reftrans), radiation_matrix.F90:1222-1333 (block-triangular
 expm sparsity), radiation_spartacus_lw.F90:636-712 (LW Gamma +
-particular solution). The CPU path calls the same cell functions as
-plain jnp inside the level scan; kernel-vs-fallback equivalence is
-asserted by tools/check_kernel_equivalence.py on hardware.
+particular solution).
 """
 from __future__ import annotations
 
-import math
-
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..solvers import two_stream as ts
-from ..solvers.matrix import (_THETA_DBL, add_eye_g, expm_reftrans_lw_g,
+from ..solvers.matrix import (add_eye_g, expm_reftrans_lw_g,
                               expm_reftrans_sw_g, mm_gu, mv_gu, solve_g,
                               solve_vec_g)
 
@@ -48,16 +31,6 @@ from ..solvers.matrix import (_THETA_DBL, add_eye_g, expm_reftrans_lw_g,
 MAX_OD_OVER_MU0_3D = 60.0
 
 LW_DIFFUSIVITY = 1.66
-_TILE = 1024
-
-
-def _g_block(ng: int) -> int:
-    """Sublane block for the (nlev, g-tiles, col-tiles) reftrans
-    grids: the largest divisor of ng that keeps the per-block VMEM
-    scratch modest, preferring multiples of 8 (vreg sublanes).
-    Mosaic requires sublane blocks divisible by 8; a non-dividing
-    final block (ng=140 -> 9 blocks of 16) is masked by Pallas."""
-    return 16 if ng >= 16 else 8
 
 
 def _diag_g(x, nreg):
@@ -89,31 +62,12 @@ def _zero_cloudy_vec(x, is_clear):
                    for i in range(1, x.shape[0])], axis=0)
 
 
-def sw_fixed_squarings(cfg) -> int:
-    """Static adding-doubling step count from the capped SW Gamma
-    1-norm (theta is the doubling-form theta3/4; see matrix.py
-    expm_reftrans_sw_g)."""
-    mc = float(cfg.max_cloud_od)
-    mt = float(cfg.max_3d_transfer_rate)
-    bound = max(2.0 * mc + 4.0 * mt, MAX_OD_OVER_MU0_3D + mc + 2.0 * mt)
-    return max(0, math.ceil(math.log2(bound / _THETA_DBL)))
-
-
-def lw_fixed_squarings(cfg) -> int:
-    """Static adding-doubling step count from the capped LW Gamma
-    1-norm (doubling-form theta; see matrix.py expm_reftrans_lw_g)."""
-    mc = float(cfg.max_cloud_od)
-    mt = float(cfg.max_3d_transfer_rate)
-    bound = (LW_DIFFUSIVITY + 0.83) * mc + 2.0 * 1.4107 * mt
-    return max(0, math.ceil(math.log2(bound / _THETA_DBL)))
-
-
 # =========================================================================
 # Shortwave
 # =========================================================================
 
 def sw_gamma_expm(cfg, nreg, mu0, od_rg, ssa_rg, g_rg, trd, trf,
-                  use3d, fixed_squarings=None):
+                  use3d):
     """Region-coupled SW reflectance/transmittance matrices.
 
     Inputs: od_rg/ssa_rg/g_rg (nreg, *batch); trd/trf (nreg, nreg,
@@ -184,12 +138,10 @@ def sw_gamma_expm(cfg, nreg, mu0, od_rg, ssa_rg, g_rg, trd, trf,
 
     # Adding-doubling (matrix.py expm_reftrans_sw_g) instead of the
     # -A^-1 B extraction on the full-layer exponential — same
-    # conditioning rationale as the LW path (see lw_gamma_expm); the
-    # round-4 TPU-specific SW loss (2.09 vs 0.10 W/m2 against f64
-    # truth) was this extraction amplifying backend transcendental /
-    # reduction-order ULP differences by ~e^{2||G||}.
-    R, T, Rdir, Tdir, Tdd = expm_reftrans_sw_g(
-        Gm, Gc, Gd, fixed_doublings=fixed_squarings)
+    # conditioning rationale as the LW path (see lw_gamma_expm): that
+    # extraction amplifies transcendental / reduction-order ULP
+    # differences by ~e^{2||G||}.
+    R, T, Rdir, Tdir, Tdd = expm_reftrans_sw_g(Gm, Gc, Gd)
     ref = jnp.clip(R, 0.0, 1.0)
     trans = jnp.clip(T, 0.0, 1.0)
     refdir = jnp.clip(Rdir, 0.0, mu0)
@@ -205,28 +157,10 @@ def _sw_mw_diag(nreg, mu0, od, ssa, g):
     return tuple(_diag_g(x, nreg) for x in (rmw, tmw, rdmw, tdmw, tddmw))
 
 
-# packed SW input rows: 3 od + 3 ssa + 3 g + 6 trd + 6 trf + mu0 +
-# use3d + clear
-SW_NF = 24
-SW_NOUT = 45
-_OFFD = [(0, 1), (1, 0), (1, 2), (2, 1), (0, 2), (2, 0)]
-
-
-def _offd_rows(rows, nreg):
-    """(6, ...) off-diagonal rows -> (nreg, nreg, ...) matrices in
-    _OFFD order (zero-padded beyond the first 2 when nreg == 2)."""
-    zero = jnp.zeros_like(rows[0])
-    m = [[zero] * nreg for _ in range(nreg)]
-    for k, (i, j) in enumerate(_OFFD[:len(_OFFD) if nreg == 3 else 2]):
-        m[i][j] = rows[k]
-    return jnp.stack([jnp.stack(r, 0) for r in m], 0)
-
-
-def _sw_compute(cfg, nreg, od, ssa, gg, trd, trf, mu0, use3d, clear,
-                fixed_sq):
+def _sw_compute(cfg, nreg, od, ssa, gg, trd, trf, mu0, use3d, clear):
     """SW per-cell pipeline, batch-generic: od/ssa/gg (nreg, *batch);
     trd/trf (nreg, nreg, *bcast); mu0/clear *bcast; use3d (*batch)
-    bool. Returns stacked (5*nreg*nreg, *batch) rows."""
+    bool. Returns (R, T, RD, TD, TDD), each (nreg, nreg, *batch)."""
     od_capped = jnp.concatenate(
         [jnp.minimum(od[:1], cfg.max_gas_od_3d), od[1:]], axis=0)
 
@@ -234,187 +168,44 @@ def _sw_compute(cfg, nreg, od, ssa, gg, trd, trf, mu0, use3d, clear,
 
     def full(_):
         f3 = sw_gamma_expm(cfg, nreg, mu0, od_capped, ssa, gg, trd,
-                           trf, use3d, fixed_squarings=fixed_sq)
+                           trf, use3d)
         return tuple(jnp.where(use3d, a, b) for a, b in zip(f3, mw))
 
     def skip(_):
         return tuple(jnp.broadcast_to(M, (nreg, nreg) + use3d.shape)
                      for M in mw)
 
-    # a tile/level with no 3D point skips the whole expm pipeline
+    # a level with no 3D point skips the whole expm pipeline
     out5 = jax.lax.cond(jnp.any(use3d), full, skip, None)
-    out5 = tuple(_zero_offdiag_clear(M, clear) for M in out5)
-    # explicit stack, not reshape: Mosaic cannot merge a leading dim
-    # into the sublane axis
-    return jnp.stack([M[i, j] for M in out5
-                      for i in range(nreg) for j in range(nreg)], axis=0)
-
-
-def _sw_cells(fc, nreg, cfg, fixed_sq):
-    """Full per-cell SW pipeline on a packed (SW_NF, B) tile; returns
-    the (SW_NOUT, B) stacked output rows. Row offsets follow the
-    _pack_sw layout: nreg od + nreg ssa + nreg g + 6 trd + 6 trf
-    (zero-padded beyond the 2 off-diagonals when nreg == 2) + mu0 +
-    use3d + clear."""
-    od = fc[0:nreg]
-    ssa = fc[nreg:2 * nreg]
-    gg = fc[2 * nreg:3 * nreg]
-    b0 = 3 * nreg
-    trd = _offd_rows([fc[b0 + k] for k in range(6)], nreg)
-    trf = _offd_rows([fc[b0 + 6 + k] for k in range(6)], nreg)
-    mu0 = fc[b0 + 12]
-    use3d = fc[b0 + 13] > 0.5
-    clear = fc[b0 + 14] > 0.5
-    return _sw_compute(cfg, nreg, od, ssa, gg, trd, trf, mu0, use3d,
-                       clear, fixed_sq)
+    return tuple(_zero_offdiag_clear(M, clear) for M in out5)
 
 
 def sw_reftrans_levels(cfg, nreg, od_r, ssa_r, g_r, trd_g, trf_g, mu0,
-                       use3d_g, clear_g, use_pallas, packed=False):
+                       use3d_g, clear_g):
     """All-levels SW reflectance/transmittance histories.
 
     od_r/ssa_r/g_r: (nlev, nreg, ng, ncol) (od region 0 uncapped —
     capping for the Gamma path happens inside); trd_g/trf_g: (nlev,
     nreg, nreg, 1, ncol); mu0 (ncol,); use3d_g (nlev, ng, ncol) bool;
     clear_g (nlev, ncol) bool. Returns (R, T, RD, TD, TDD) each
-    (nlev, nreg, nreg, ng, ncol) — or, with packed=True, the raw
-    stacked rows (nlev, 5*nreg*nreg, ng, ncol) in [R|T|RD|TD|TDD]
-    order, which is EXACTLY the hist layout the fused adding kernels
-    consume (ops/spartacus_adding.py): the unpack-into-5 + re-concat
-    round trip costed ~17 ms of HBM copies at 2048 columns."""
-    nlev, _, ng, ncol = od_r.shape
-    n = ng * ncol
-    fixed_sq = sw_fixed_squarings(cfg)
+    (nlev, nreg, nreg, ng, ncol). One level at a time inside a scan,
+    which keeps memory bounded."""
+    def body(_, xs):
+        od_l, ssa_l, g_l, trd_l, trf_l, u3_l, cl_l = xs
+        return None, _sw_compute(cfg, nreg, od_l, ssa_l, g_l, trd_l,
+                                 trf_l, mu0, u3_l, cl_l)
 
-    if not use_pallas:
-        # plain jnp, one level at a time inside a scan (keeps CPU
-        # memory bounded; the cell math is identical to the kernel's)
-        def body(_, xs):
-            od_l, ssa_l, g_l, trd_l, trf_l, u3_l, cl_l = xs
-            fc = _pack_sw(od_l[None], ssa_l[None], g_l[None],
-                          trd_l[None], trf_l[None], mu0, u3_l[None],
-                          cl_l[None], ng, ncol)[0]
-            out = _sw_cells(fc, nreg, cfg, None)
-            return None, out.reshape(5 * nreg * nreg, ng, ncol)
-
-        _, hist = jax.lax.scan(
-            body, None, (od_r, ssa_r, g_r, trd_g, trf_g, use3d_g,
-                         clear_g))
-        return hist if packed else _unpack_sw(hist, nreg)
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    # Grid (nlev, g-tiles, col-tiles) with the (ng, ncol) axes kept
-    # intact: flattening (ng, ncol) into one batch axis (the round-2/3
-    # form) forces XLA tile-relayout copies on EVERY kernel input and
-    # output ((n//128, 128) vs (ng, ncol) (8,128)-tilings order tiles
-    # differently) — measured 17 ms out + 7 ms in at 2048 columns for
-    # the SW kernel alone. Per-column rows now enter as (R, 1, LB)
-    # blocks broadcast across the g sublanes inside VMEM, so the old
-    # full-row broadcasts in _pack_sw are gone too.
-    nout = 5 * nreg * nreg
-    gb = _g_block(ng)
-    ncol_pad = -(-ncol // 128) * 128
-
-    def padc(x):
-        if x.shape[-1] == ncol_pad:
-            return x
-        return jnp.pad(x, [(0, 0)] * (x.ndim - 1)
-                       + [(0, ncol_pad - x.shape[-1])])
-
-    od_p = padc(od_r)
-    ssa_p = padc(ssa_r)
-    g_p = padc(g_r)
-    u3_p = padc(use3d_g.astype(od_r.dtype))
-    noff = len(_OFFD) if nreg == 3 else 2
-    colrows = [trd_g[:, i, j, 0, :] for (i, j) in _OFFD[:noff]]
-    colrows += [jnp.zeros((nlev, ncol), od_r.dtype)] * (6 - noff)
-    colrows += [trf_g[:, i, j, 0, :] for (i, j) in _OFFD[:noff]]
-    colrows += [jnp.zeros((nlev, ncol), od_r.dtype)] * (6 - noff)
-    colrows += [jnp.broadcast_to(mu0[None], (nlev, ncol)),
-                clear_g.astype(od_r.dtype)]
-    cols = padc(jnp.stack(colrows, axis=1))     # (nlev, 14, ncol_pad)
-
-    def kernel(od_ref, ssa_ref, g_ref, u3_ref, cols_ref, out_ref):
-        c = cols_ref[0]                          # (14, 1, 128)
-        trd = _offd_rows([c[k] for k in range(6)], nreg)
-        trf = _offd_rows([c[6 + k] for k in range(6)], nreg)
-        out_ref[0] = _sw_compute(
-            cfg, nreg, od_ref[0], ssa_ref[0], g_ref[0], trd, trf,
-            c[12], u3_ref[0] > 0.5, c[13] > 0.5, fixed_sq)
-
-    cell_spec = pl.BlockSpec((1, nreg, gb, 128),
-                             lambda l, g, c: (l, 0, g, c),
-                             memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        kernel,
-        grid=(nlev, -(-ng // gb), ncol_pad // 128),
-        in_specs=[cell_spec, cell_spec, cell_spec,
-                  pl.BlockSpec((1, gb, 128),
-                               lambda l, g, c: (l, g, c),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((1, 14, 1, 128),
-                               lambda l, g, c: (l, 0, 0, c),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, nout, gb, 128),
-                               lambda l, g, c: (l, 0, g, c),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(
-            (nlev, nout, ng, ncol_pad), jnp.float32),
-    )(od_p, ssa_p, g_p, u3_p, cols[:, :, None, :])
-    out = out[..., :ncol]
-    return out if packed else _unpack_sw(out, nreg)
-
-
-def _pack_sw(od_r, ssa_r, g_r, trd_g, trf_g, mu0, use3d_g, clear_g,
-             ng, ncol):
-    """(nlev, SW_NF, ng*ncol) packed kernel input."""
-    nlev = od_r.shape[0]
-    n = ng * ncol
-
-    def cell(x):                       # (nlev, k, ng, ncol) -> rows
-        return x.reshape(nlev, -1, n)
-
-    def bcol(x):                       # (nlev, ncol) -> one row
-        return jnp.broadcast_to(x[:, None, None, :],
-                                (nlev, 1, ng, ncol)).reshape(nlev, 1, n)
-
-    rows = [cell(od_r), cell(ssa_r), cell(g_r)]
-    noff = len(_OFFD) if od_r.shape[1] == 3 else 2
-    for tr in (trd_g, trf_g):
-        for (i, j) in _OFFD[:noff]:
-            rows.append(bcol(tr[:, i, j, 0, :]))
-        for _ in range(len(_OFFD) - noff):
-            rows.append(jnp.zeros((nlev, 1, n), od_r.dtype))
-    rows.append(jnp.broadcast_to(
-        mu0[None, None, None, :],
-        (nlev, 1, ng, ncol)).reshape(nlev, 1, n))
-    rows.append(cell(use3d_g[:, None].astype(od_r.dtype)))
-    rows.append(bcol(clear_g.astype(od_r.dtype)))
-    return jnp.concatenate(rows, axis=1)
-
-
-def _unpack_sw(out, nreg):
-    """(nlev, SW_NOUT, ...) -> 5 histories (nlev, nreg, nreg, ...)."""
-    m = nreg * nreg
-    shape = out.shape[:1] + (nreg, nreg) + out.shape[2:]
-    return tuple(out[:, k * m:(k + 1) * m].reshape(shape)
-                 for k in range(5))
+    _, hist = jax.lax.scan(
+        body, None, (od_r, ssa_r, g_r, trd_g, trf_g, use3d_g, clear_g))
+    return hist
 
 
 # =========================================================================
 # Longwave
 # =========================================================================
 
-# packed LW rows: 3 od + 3 ssa + 3 g + 6 tr + se + pt + pb + 3 fr +
-# use3d + clear
-LW_NF = 23
-LW_NOUT = 24
-
-
 def lw_gamma_expm(cfg, nreg, od_capped, ssa, gg, tr, se, pt, pb, fr,
-                  use3d, fixed_squarings=None):
+                  use3d):
     """LW 3D reflectance/transmittance/source terms
     (radiation_spartacus_lw.F90:636-712), batch-generic."""
     dtype = od_capped.dtype
@@ -479,8 +270,7 @@ def lw_gamma_expm(cfg, nreg, od_capped, ssa, gg, tr, se, pt, pb, fr,
     # ~e^50 at the od caps — the round-4 root cause of the 5-10 W/m2
     # f32 lw_dn error at cloudy columns (it is marginal even in f64,
     # where the reference runs it; radiation_spartacus_lw.F90:694).
-    ref3, trans3 = expm_reftrans_lw_g(
-        Atl, Bbl, fixed_doublings=fixed_squarings)
+    ref3, trans3 = expm_reftrans_lw_g(Atl, Bbl)
     # Sources from the particular-solution boundary values and the
     # STABLE (R, T): subtracting the particular solution reduces the
     # layer to the homogeneous system, so (ref :694-712, re-derived)
@@ -496,11 +286,11 @@ def lw_gamma_expm(cfg, nreg, od_capped, ssa, gg, tr, se, pt, pb, fr,
 
 
 def _lw_compute(cfg, nreg, od, ssa, gg, tr, se, pt, pb, fr, use3d,
-                clear, fixed_sq):
+                clear):
     """LW per-cell pipeline, batch-generic: od/ssa/gg (nreg, *batch);
     tr (nreg, nreg, *bcast); se/pt/pb (*batch); fr (nreg, *bcast);
-    use3d (*batch) bool; clear *bcast bool. Returns stacked
-    (2*nreg*(nreg+1), *batch) rows [R | T | SU | SD]."""
+    use3d (*batch) bool; clear *bcast bool. Returns (R, T, SU, SD):
+    (nreg, nreg, *batch) matrices and (nreg, *batch) vectors."""
     od_capped = jnp.concatenate(
         [jnp.minimum(od[:1], cfg.max_gas_od_3d), od[1:]], axis=0)
     gamma1, gamma2 = ts.lw_gammas(ssa, gg)
@@ -508,8 +298,7 @@ def _lw_compute(cfg, nreg, od, ssa, gg, tr, se, pt, pb, fr, use3d,
 
     def full(_):
         return lw_gamma_expm(cfg, nreg, od_capped, ssa, gg, tr, se,
-                             pt, pb, fr, use3d,
-                             fixed_squarings=fixed_sq)
+                             pt, pb, fr, use3d)
 
     def skip(_):
         zm = jnp.zeros((nreg, nreg) + batch, od.dtype)
@@ -536,166 +325,23 @@ def _lw_compute(cfg, nreg, od, ssa, gg, tr, se, pt, pb, fr, use3d,
     trans = jnp.where(use3d, trans3, _diag_g(tmw, nreg))
     sup = jnp.where(use3d, sup3, jnp.broadcast_to(sumw, (nreg,) + batch))
     sdn = jnp.where(use3d, sdn3, jnp.broadcast_to(sdmw, (nreg,) + batch))
-    ref = _zero_offdiag_clear(ref, clear)
-    trans = _zero_offdiag_clear(trans, clear)
-    sup = _zero_cloudy_vec(sup, clear)
-    sdn = _zero_cloudy_vec(sdn, clear)
-    # explicit stack, not reshape (see _sw_cells)
-    return jnp.stack(
-        [M[i, j] for M in (ref, trans)
-         for i in range(nreg) for j in range(nreg)]
-        + [sup[i] for i in range(nreg)]
-        + [sdn[i] for i in range(nreg)], axis=0)
-
-
-def _lw_cells(fc, nreg, cfg, fixed_sq):
-    """Full per-cell LW pipeline on a packed (LW_NF, B) tile; returns
-    the (LW_NOUT, B) stacked output rows. Row offsets follow the
-    _pack_lw layout: nreg od + nreg ssa + nreg g + 6 tr (zero-padded
-    beyond the 2 off-diagonals when nreg == 2) + se + pt + pb +
-    nreg fr + use3d + clear."""
-    b0 = 3 * nreg
-    od = fc[0:nreg]
-    ssa = fc[nreg:2 * nreg]
-    gg = fc[2 * nreg:3 * nreg]
-    tr = _offd_rows([fc[b0 + k] for k in range(6)], nreg)
-    se = fc[b0 + 6]
-    pt = fc[b0 + 7]
-    pb = fc[b0 + 8]
-    fr = fc[b0 + 9:b0 + 9 + nreg]           # (nreg, B)
-    use3d = fc[b0 + 9 + nreg] > 0.5
-    clear = fc[b0 + 10 + nreg] > 0.5
-    return _lw_compute(cfg, nreg, od, ssa, gg, tr, se, pt, pb, fr,
-                       use3d, clear, fixed_sq)
-
-
-def _pack_lw(od_r, ssa_r, g_r, tr_g, se_g, pt_g, pb_g, fr_g, use3d_g,
-             clear_g, ng, ncol):
-    nlev = od_r.shape[0]
-    n = ng * ncol
-
-    def cell(x):
-        return x.reshape(nlev, -1, n)
-
-    def bcol(x):
-        return jnp.broadcast_to(x[:, None, None, :],
-                                (nlev, 1, ng, ncol)).reshape(nlev, 1, n)
-
-    rows = [cell(od_r), cell(ssa_r), cell(g_r)]
-    noff = len(_OFFD) if od_r.shape[1] == 3 else 2
-    for (i, j) in _OFFD[:noff]:
-        rows.append(bcol(tr_g[:, i, j, 0, :]))
-    for _ in range(len(_OFFD) - noff):
-        rows.append(jnp.zeros((nlev, 1, n), od_r.dtype))
-    rows.append(cell(se_g[:, None]))
-    rows.append(cell(pt_g[:, None]))
-    rows.append(cell(pb_g[:, None]))
-    for r in range(od_r.shape[1]):
-        rows.append(bcol(fr_g[:, r, 0, :]))
-    rows.append(cell(use3d_g[:, None].astype(od_r.dtype)))
-    rows.append(bcol(clear_g.astype(od_r.dtype)))
-    return jnp.concatenate(rows, axis=1)
+    return (_zero_offdiag_clear(ref, clear),
+            _zero_offdiag_clear(trans, clear),
+            _zero_cloudy_vec(sup, clear), _zero_cloudy_vec(sdn, clear))
 
 
 def lw_reftrans_levels(cfg, nreg, od_r, ssa_r, g_r, tr_g, se_g, pt_g,
-                       pb_g, fr_g, use3d_g, clear_g, use_pallas,
-                       packed=False):
-    """All-levels LW histories (R, T, SU, SD). packed=True returns
-    the raw (nlev, 2*nreg*(nreg+1), ng, ncol) stacked rows in
-    [R|T|SU|SD] order — the fused adding kernels' hist layout
-    (see sw_reftrans_levels).
+                       pb_g, fr_g, use3d_g, clear_g):
+    """All-levels LW histories (R, T, SU, SD), one level at a time
+    inside a scan.
 
     od_r/ssa_r/g_r (nlev, nreg, ng, ncol); tr_g (nlev, nreg, nreg, 1,
     ncol); se_g/pt_g/pb_g (nlev, ng, ncol); fr_g (nlev, nreg, 1,
     ncol); use3d_g (nlev, ng, ncol); clear_g (nlev, ncol)."""
-    nlev, _, ng, ncol = od_r.shape
-    n = ng * ncol
-    fixed_sq = lw_fixed_squarings(cfg)
+    def body(_, xs):
+        return None, _lw_compute(cfg, nreg, *xs)
 
-    if not use_pallas:
-        def body(_, xs):
-            (od_l, ssa_l, g_l, tr_l, se_l, pt_l, pb_l, fr_l, u3_l,
-             cl_l) = xs
-            fc = _pack_lw(od_l[None], ssa_l[None], g_l[None],
-                          tr_l[None], se_l[None], pt_l[None],
-                          pb_l[None], fr_l[None], u3_l[None],
-                          cl_l[None], ng, ncol)[0]
-            out = _lw_cells(fc, nreg, cfg, None)
-            return None, out.reshape(2 * nreg * (nreg + 1), ng, ncol)
-
-        _, hist = jax.lax.scan(
-            body, None, (od_r, ssa_r, g_r, tr_g, se_g, pt_g, pb_g,
-                         fr_g, use3d_g, clear_g))
-        return hist if packed else _unpack_lw(hist, nreg)
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    # (nlev, g-tiles, col-tiles) grid with (ng, ncol) intact — see the
-    # SW wrapper for the tile-relayout rationale.
-    nout = 2 * nreg * (nreg + 1)
-    gb = _g_block(ng)
-    ncol_pad = -(-ncol // 128) * 128
-
-    def padc(x):
-        if x.shape[-1] == ncol_pad:
-            return x
-        return jnp.pad(x, [(0, 0)] * (x.ndim - 1)
-                       + [(0, ncol_pad - x.shape[-1])])
-
-    od_p = padc(od_r)
-    ssa_p = padc(ssa_r)
-    g_p = padc(g_r)
-    u3_p = padc(use3d_g.astype(od_r.dtype))
-    se_p = padc(se_g)
-    pt_p = padc(pt_g)
-    pb_p = padc(pb_g)
-    noff = len(_OFFD) if nreg == 3 else 2
-    colrows = [tr_g[:, i, j, 0, :] for (i, j) in _OFFD[:noff]]
-    colrows += [jnp.zeros((nlev, ncol), od_r.dtype)] * (6 - noff)
-    colrows += [fr_g[:, r, 0, :] for r in range(nreg)]
-    colrows += [jnp.zeros((nlev, ncol), od_r.dtype)] * (3 - nreg)
-    colrows += [clear_g.astype(od_r.dtype)]
-    cols = padc(jnp.stack(colrows, axis=1))   # (nlev, 10, ncol_pad)
-
-    def kernel(od_ref, ssa_ref, g_ref, se_ref, pt_ref, pb_ref,
-               u3_ref, cols_ref, out_ref):
-        c = cols_ref[0]                        # (10, 1, 128)
-        tr = _offd_rows([c[k] for k in range(6)], nreg)
-        fr = jnp.concatenate([c[6 + r] for r in range(nreg)], axis=0)
-        out_ref[0] = _lw_compute(
-            cfg, nreg, od_ref[0], ssa_ref[0], g_ref[0], tr, se_ref[0],
-            pt_ref[0], pb_ref[0], fr[:, None], u3_ref[0] > 0.5,
-            c[9] > 0.5, fixed_sq)
-
-    cell_spec = pl.BlockSpec((1, nreg, gb, 128),
-                             lambda l, g, c: (l, 0, g, c),
-                             memory_space=pltpu.VMEM)
-    row_spec = pl.BlockSpec((1, gb, 128), lambda l, g, c: (l, g, c),
-                            memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        kernel,
-        grid=(nlev, -(-ng // gb), ncol_pad // 128),
-        in_specs=[cell_spec, cell_spec, cell_spec,
-                  row_spec, row_spec, row_spec, row_spec,
-                  pl.BlockSpec((1, 10, 1, 128),
-                               lambda l, g, c: (l, 0, 0, c),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, nout, gb, 128),
-                               lambda l, g, c: (l, 0, g, c),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(
-            (nlev, nout, ng, ncol_pad), jnp.float32),
-    )(od_p, ssa_p, g_p, se_p, pt_p, pb_p, u3_p, cols[:, :, None, :])
-    out = out[..., :ncol]
-    return out if packed else _unpack_lw(out, nreg)
-
-
-def _unpack_lw(out, nreg):
-    m = nreg * nreg
-    mat_shape = out.shape[:1] + (nreg, nreg) + out.shape[2:]
-    vec_shape = out.shape[:1] + (nreg,) + out.shape[2:]
-    return (out[:, :m].reshape(mat_shape),
-            out[:, m:2 * m].reshape(mat_shape),
-            out[:, 2 * m:2 * m + nreg].reshape(vec_shape),
-            out[:, 2 * m + nreg:2 * m + 2 * nreg].reshape(vec_shape))
+    _, hist = jax.lax.scan(
+        body, None, (od_r, ssa_r, g_r, tr_g, se_g, pt_g, pb_g, fr_g,
+                     use3d_g, clear_g))
+    return hist

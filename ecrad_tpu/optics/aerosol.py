@@ -131,14 +131,13 @@ def add_aerosol_optics(setup, thermodynamics, gas, aerosol,
         """me/ssa/g: (ntype, nrh, nb) -> band sums (ncol, nlev, nb).
 
         One (cells x ntype) @ (ntype x nband) matmul per rh bin keeps
-        intermediates small and feeds the MXU."""
+        intermediates small."""
         me_j = jnp.asarray(me, dtype)
         scat_j = me_j * jnp.asarray(ssa_t, dtype)
         scatg_j = scat_j * jnp.asarray(g_t, dtype)
         od_c = scat_c = scatg_c = 0.0
-        # precision=HIGHEST: TPU matmuls default to bf16 inputs, which
-        # puts a ~1e-3 relative error on every aerosol od and was the
-        # round-5 TPU-only ~1.2 W/m2 clear-sky SW flux error
+        # precision=HIGHEST: a reduced-precision default (bf16 or TF32
+        # inputs) puts a ~1e-3 relative error on every aerosol od
         mm = lambda a, b: jnp.matmul(
             a, b, precision=jax.lax.Precision.HIGHEST)
         for r in range(nrh):

@@ -21,7 +21,6 @@ from typing import Optional, Tuple
 
 import jax.numpy as jnp
 
-from ..utils import fastmath
 import numpy as np
 
 from ..config import IceModel, LiquidModel, RadiationConfig, Solver
@@ -196,7 +195,7 @@ def ice_baran2017(coeff_gen, coeff, iwp, qi, temperature,
     qi = qi[..., None]
     t = temperature[..., None]
     gen = np.asarray(coeff_gen)
-    qi_mod = qi * fastmath.exp(gen[0] * (t - gen[1]))
+    qi_mod = qi * jnp.exp(gen[0] * (t - gen[1]))
     qi_mod_od = qi_mod ** gen[2]
     qi_mod_ssa = qi_mod ** gen[3]
     qi_mod_g = qi_mod ** gen[4]

@@ -7,7 +7,7 @@ profiles from the TOTPLNK look-up table and PFRAC, normalizes the incoming
 solar flux to the prescribed total solar irradiance, and flips levels back
 to ecRad orientation (TOA first).
 
-Outputs use the TPU-first layout (ncol, nlev, ng) with g innermost.
+Outputs use the layout (ncol, nlev, ng) with g innermost.
 """
 from __future__ import annotations
 
@@ -146,8 +146,7 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
     c = setcoef(gc, t["preflog"], t["tref"], t["chi_mls"])
 
     # ---- LW -------------------------------------------------------------
-    # toa_first: the flip is folded into the fused kernel's (ncol, nlev)
-    # coeff inputs instead of copying two (ncol, nlev, 140) outputs
+    # toa_first: outputs in ecRad (TOA-first) level order
     od_lw_rrtm, pfrac = taumol_lw(c, t, toa_first=True)
     od_lw = jnp.maximum(min_gas_od_lw, od_lw_rrtm)
     od_lw = od_lw[:, :, spec.g_from_reordered_g_lw]
@@ -185,7 +184,7 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
     # ---- SW -------------------------------------------------------------
     taug, taur, sflux = taumol_sw(c, t, toa_first=True)
     od_sw_rrtm = taug + taur
-    # clip: TPU reciprocal-based division can return values an ulp above 1
+    # clip: a reciprocal-based division can return values an ulp above 1
     ssa_sw_rrtm = jnp.clip(taur / jnp.maximum(od_sw_rrtm, 1e-30), 0.0, 1.0)
     od_sw = jnp.maximum(min_gas_od_sw, od_sw_rrtm)
     ssa_sw = ssa_sw_rrtm

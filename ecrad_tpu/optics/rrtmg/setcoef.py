@@ -8,7 +8,7 @@ Vectorized JAX reimplementation of the reference semantics:
 All arrays are (ncol, nlev) with the level axis in RRTMG orientation
 (index 0 = surface). The tropopause split is a per-cell mask (log p > 4.56)
 instead of a per-column layer count — identical semantics since pressure
-decreases monotonically with height, but branch-free for the TPU.
+decreases monotonically with height, but branch-free.
 """
 from __future__ import annotations
 
@@ -23,9 +23,8 @@ def chi_rows_at(chi, idx0):
     """All-gas chi_mls values at a per-cell pressure index.
 
     chi (ngas, 59); idx0 int32 (any shape, 0-based). Returns
-    (ngas,) + idx0.shape. One one-hot MXU product instead of per-gas
-    dynamic takes — XLA lowers those to serial gathers (~9 M rows/s,
-    ~2 ms each on a 280k-cell batch; see ops/gather_interp.py)."""
+    (ngas,) + idx0.shape. One exact (HIGHEST) one-hot product instead
+    of per-gas dynamic takes."""
     nrow = chi.shape[1]
     flat = jnp.clip(idx0.reshape(-1), 0, nrow - 1)
     onehot = (flat[None, :] == jnp.arange(nrow)[:, None]).astype(chi.dtype)

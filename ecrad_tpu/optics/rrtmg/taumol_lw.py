@@ -8,12 +8,11 @@ fractions. Output is (ncol, nlev, 140) optical depth + Planck fraction,
 levels surface-first (flipped to ecRad order by the bridge).
 
 Implementation: every k-table lookup is expressed as a `Section` (row
-indices + weights into a table) and each band's optical depth is one
-`eval_sections` call — a single Pallas one-hot-matmul kernel launch on
-TPU (see ops/gather_interp.py), with tropopause branching, column
-amounts and empirical correction factors folded into the per-cell
-weights. Intermediates live in (g, cell) orientation so the small
-per-band g dimension never pads to 128 lanes.
+indices + weights into a table; see ops/gather_interp.py) and each
+band's optical depth and Planck fraction is one `eval_sections` call
+each, with tropopause branching, column amounts and empirical correction
+factors folded into the per-cell weights. Intermediates live in
+(g, cell) orientation.
 """
 from __future__ import annotations
 
@@ -96,9 +95,7 @@ def _major_eta_sections(c, absa, absb, col1, col2, rat_a, rat_a1,
 
     The (jp, jt) corner x eta-offset weights factor exactly as an outer
     product, so each tropo/strat part is one EtaSection with two
-    families (jt and jt1) — the kernel then builds 65- and 9-wide
-    one-hots instead of 16 compares over the 585-row flattened table
-    (ops/gather_interp.py EtaSection).
+    families (jt and jt1) (ops/gather_interp.py EtaSection).
     """
     from ...ops.gather_interp import EtaSection
     dtype = col1.dtype
@@ -231,31 +228,14 @@ def _chi_adjust(col, coldry, ref, thresh, base, expo):
     return jnp.where(rat > thresh, adjcol, col)
 
 
-def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
+def taumol_lw(c2: Coeffs, t: dict, toa_first=False):
     """All 16 LW bands. Returns (tau, pfrac), each (ncol, nlev, 140),
-    levels surface-first (toa_first=False) or TOA-first.
-
-    On TPU in f32 this dispatches to the fused all-band kernel
-    (taumol_lw_fused.py): one launch, rows/weights computed in VMEM;
-    with toa_first the kernel also emits cell-major output so the level
-    flip and the (ncol*nlev, 140) relayout cost nothing.
-    Set ECRAD_FUSED_TAUMOL=0 to force the per-band Section path."""
-    import os
-    from ..rrtmg.taumol_lw_fused import taumol_lw_fused
-    from ...ops.gather_interp import use_pallas_default
-    fused_env = os.environ.get("ECRAD_FUSED_TAUMOL", "1")
-    want_pallas = (use_pallas if use_pallas is not None
-                   else use_pallas_default())
-    if (fused_env != "0" and want_pallas
-            and c2.colh2o.dtype == jnp.float32):
-        return taumol_lw_fused(c2, t, use_pallas=True,
-                               toa_first=toa_first)
+    levels surface-first (toa_first=False) or TOA-first."""
     if toa_first:
-        tau, pfrac = taumol_lw(c2, t, use_pallas=use_pallas)
+        tau, pfrac = taumol_lw(c2, t)
         return tau[:, ::-1], pfrac[:, ::-1]
 
     ncol, nlev = c2.tropo.shape
-    n = ncol * nlev
     c = _flat(c2)
     dtype = c.colh2o.dtype
     chi = jnp.asarray(t["chi_mls"], dtype)  # (7, 59)
@@ -272,27 +252,11 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
         return float(np.asarray(t["chi_mls"])[gas_1b - 1, jp_1b - 1])
 
     def ev(sections):
-        return eval_sections(sections, n, use_pallas=use_pallas,
-                             dtype=dtype)
+        return eval_sections(sections, dtype=dtype)
 
-    def ev2(tau_secs, pfrac_secs):
-        """Evaluate a band's tau and pfrac in ONE kernel launch by
-        stacking their tables side-by-side along g (each section's
-        table zero-padded on the other half)."""
-        ngb = int(np.asarray(tau_secs[0].table).shape[-1])
-
-        def pad(sec, left):
-            tab = np.asarray(sec.table, np.float32)
-            z = np.zeros_like(tab)
-            tab2 = (np.concatenate([tab, z], axis=-1) if left
-                    else np.concatenate([z, tab], axis=-1))
-            return sec._replace(table=tab2)
-
-        combined = ([pad(s, True) for s in tau_secs]
-                    + [pad(s, False) for s in pfrac_secs])
-        out = eval_sections(combined, n, use_pallas=use_pallas,
-                            dtype=dtype)
-        return out[:ngb], out[ngb:]
+    def ev_band(tau_secs, pfrac_secs):
+        """A band's (tau, pfrac), each (ng_band, N)."""
+        return ev(tau_secs), ev(pfrac_secs)
 
     def eta_major_section(band, col1, col2, rat_a, rat_a1, rat_b=None,
                           rat_b1=None, col1_b=None, col2_b=None,
@@ -314,7 +278,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
                                      c.minorfrac, tropf * scalen2))
     secs.append(_minor_noeta_section(t["lw1_kbo_mn2"], c.indminor,
                                      c.minorfrac, stratf * scalen2))
-    tau, pf = ev2(secs, [_switch_section(t["lw1_fracrefa"],
+    tau, pf = ev_band(secs, [_switch_section(t["lw1_fracrefa"],
                                          t["lw1_fracrefb"], trop, dtype)])
     corradj = jnp.where(trop,
                         jnp.where(c.pavel < 250.0,
@@ -336,7 +300,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
                        [w * corradj2 for w in sf[0].weights])
     for_sec = Section(sf[1].table, sf[1].rows,
                       [w * wa for w in sf[1].weights])
-    tau, pf = ev2([sec_major, self_sec, for_sec],
+    tau, pf = ev_band([sec_major, self_sec, for_sec],
                   [_switch_section(t["lw2_fracrefa"], t["lw2_fracrefb"],
                                    trop, dtype)])
     taus.append(tau)
@@ -365,7 +329,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
         c.colh2o, chi_at(1, 9) / chi_at(2, 9), c.colco2, 8.0,
         col1_b=c.colh2o, rat_b=chi_at(1, 13) / chi_at(2, 13),
         col2_b=c.colco2, mult_b=4.0)
-    tau, pf = ev2(secs, pf_secs)
+    tau, pf = ev_band(secs, pf_secs)
     taus.append(tau)
     fracs.append(pf)
 
@@ -384,7 +348,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
         c.colh2o, chi_at(1, 11) / chi_at(2, 11), c.colco2, 8.0,
         col1_b=c.colo3, rat_b=chi_at(3, 13) / chi_at(2, 13),
         col2_b=c.colco2, mult_b=4.0)
-    tau4, pf = ev2(secs, pf_secs)
+    tau4, pf = ev_band(secs, pf_secs)
     ng4 = tau4.shape[0]
     scale = np.ones(ng4, np.float32)
     for g_1b, f in zip(range(8, 15), (0.92, 0.88, 1.07, 1.1, 0.99,
@@ -416,7 +380,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
         c.colh2o, chi_at(1, 5) / chi_at(2, 5), c.colco2, 8.0,
         col1_b=c.colo3, rat_b=chi_at(3, 43) / chi_at(2, 43),
         col2_b=c.colco2, mult_b=4.0)
-    tau, pf = ev2(secs, pf_secs)
+    tau, pf = ev_band(secs, pf_secs)
     taus.append(tau)
     fracs.append(pf)
 
@@ -439,7 +403,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
                                      c.minorfrac, tropf * adjcolco2))
     secs.append(_const_section(t["lw6_cfc11adj"], c.wx_cfc11))
     secs.append(_const_section(t["lw6_cfc12"], c.wx_cfc12))
-    tau, pf = ev2(secs, [_const_section(t["lw6_fracrefa"], ones)])
+    tau, pf = ev_band(secs, [_const_section(t["lw6_fracrefa"], ones)])
     taus.append(tau)
     fracs.append(pf)
 
@@ -465,7 +429,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
     pf_secs, _ = _pfrac_eta_sections(
         c, t["lw7_fracrefa"], np.asarray(t["lw7_fracrefb"]),
         c.colh2o, chi_at(1, 3) / chi_at(3, 3), c.colo3, 8.0)
-    tau7, pf = ev2(secs, pf_secs)
+    tau7, pf = ev_band(secs, pf_secs)
     ng7 = tau7.shape[0]
     scale = np.ones(ng7, np.float32)
     for g_1b, f in zip(range(6, 12), (0.92, 0.88, 1.07, 1.1, 0.99, 0.855)):
@@ -495,7 +459,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
                                      c.minorfrac, stratf * c.coln2o))
     secs.append(_const_section(t["lw8_cfc12"], c.wx_cfc12))
     secs.append(_const_section(t["lw8_cfc22adj"], c.wx_cfc22))
-    tau, pf = ev2(secs, [_switch_section(t["lw8_fracrefa"], t["lw8_fracrefb"],
+    tau, pf = ev_band(secs, [_switch_section(t["lw8_fracrefa"], t["lw8_fracrefb"],
                                      trop, dtype)])
     taus.append(tau)
     fracs.append(pf)
@@ -522,7 +486,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
     pf_secs, _ = _pfrac_eta_sections(
         c, t["lw9_fracrefa"], np.asarray(t["lw9_fracrefb"]),
         c.colh2o, chi_at(1, 9) / chi_at(6, 9), c.colch4, 8.0)
-    tau, pf = ev2(secs, pf_secs)
+    tau, pf = ev_band(secs, pf_secs)
     taus.append(tau)
     fracs.append(pf)
 
@@ -532,7 +496,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
     sf = _self_for_sections(c, t["lw10_selfref"], t["lw10_forref"])
     secs.append(sf[0])
     secs.append(sf[1])
-    tau, pf = ev2(secs, [_switch_section(t["lw10_fracrefa"],
+    tau, pf = ev_band(secs, [_switch_section(t["lw10_fracrefa"],
                                      t["lw10_fracrefb"], trop, dtype)])
     taus.append(tau)
     fracs.append(pf)
@@ -548,7 +512,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
                                      c.minorfrac, tropf * scaleo2))
     secs.append(_minor_noeta_section(t["lw11_kbo_mo2"], c.indminor,
                                      c.minorfrac, stratf * scaleo2))
-    tau, pf = ev2(secs, [_switch_section(t["lw11_fracrefa"],
+    tau, pf = ev_band(secs, [_switch_section(t["lw11_fracrefa"],
                                      t["lw11_fracrefb"], trop, dtype)])
     taus.append(tau)
     fracs.append(pf)
@@ -563,7 +527,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
     pf_secs, _ = _pfrac_eta_sections(
         c, t["lw12_fracrefa"], None,
         c.colh2o, chi_at(1, 10) / chi_at(2, 10), c.colco2, 8.0)
-    tau, pf = ev2(secs, pf_secs)
+    tau, pf = ev_band(secs, pf_secs)
     taus.append(tau)
     fracs.append(pf)
 
@@ -588,7 +552,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
     pf_secs, _ = _pfrac_eta_sections(
         c, t["lw13_fracrefa"], np.asarray(t["lw13_fracrefb"]),
         c.colh2o, chi_at(1, 5) / chi_at(4, 5), c.coln2o, 8.0)
-    tau, pf = ev2(secs, pf_secs)
+    tau, pf = ev_band(secs, pf_secs)
     taus.append(tau)
     fracs.append(pf)
 
@@ -599,7 +563,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
     secs.append(sf[0])
     secs.append(Section(sf[1].table, sf[1].rows,
                         [w * tropf for w in sf[1].weights]))
-    tau, pf = ev2(secs, [_switch_section(t["lw14_fracrefa"],
+    tau, pf = ev_band(secs, [_switch_section(t["lw14_fracrefa"],
                                      t["lw14_fracrefb"], trop, dtype)])
     taus.append(tau)
     fracs.append(pf)
@@ -621,7 +585,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
     pf_secs, _ = _pfrac_eta_sections(
         c, t["lw15_fracrefa"], None,
         c.coln2o, chi_at(4, 1) / chi_at(2, 1), c.colco2, 8.0)
-    tau, pf = ev2(secs, pf_secs)
+    tau, pf = ev_band(secs, pf_secs)
     taus.append(tau)
     fracs.append(pf)
 
@@ -638,7 +602,7 @@ def taumol_lw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
     pf_secs, _ = _pfrac_eta_sections(
         c, t["lw16_fracrefa"], np.asarray(t["lw16_fracrefb"]),
         c.colh2o, chi_at(1, 6) / chi_at(6, 6), c.colch4, 8.0)
-    tau, pf = ev2(secs, pf_secs)
+    tau, pf = ev_band(secs, pf_secs)
     taus.append(tau)
     fracs.append(pf)
 

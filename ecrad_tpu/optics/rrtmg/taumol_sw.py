@@ -7,12 +7,11 @@ layer where the pressure-interpolation index crosses the band's reference
 level (LAYREFFR / LAYSOLFR logic).
 
 Implementation: like the longwave (taumol_lw.py), every k-table lookup is
-a `Section` evaluated by the Pallas one-hot-matmul kernel on TPU (pure-JAX
-take on CPU), with tropopause gating and column amounts folded into the
-per-cell weights and intermediates in (g, cell) orientation. Instead of
-compressing to daylight columns (the reference gathers cols with mu0>0)
-everything is computed and the solver masks night columns — predication
-beats gathers on TPU.
+a `Section` (ops/gather_interp.py), with tropopause gating and column
+amounts folded into the per-cell weights and intermediates in (g, cell)
+orientation. Instead of compressing to daylight columns (the reference
+gathers cols with mu0>0) everything is computed and the solver masks
+night columns, which keeps every shape static.
 """
 from __future__ import annotations
 
@@ -83,25 +82,12 @@ def _sflux_eta(sfluxref, js_lay, fs_lay):
     return _lin(tabt, js_lay, fs_lay)
 
 
-def taumol_sw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
+def taumol_sw(c2: Coeffs, t: dict, toa_first=False):
     """All 14 SW bands. Returns (taug, taur, sfluxzen):
     taug/taur (ncol, nlev, 112) surface-first (or TOA-first),
-    sfluxzen (ncol, 112).
-
-    On TPU in f32 this dispatches to the fused all-band kernel
-    (taumol_sw_fused.py). ECRAD_FUSED_TAUMOL=0 forces the per-band
-    Section path."""
-    import os
-    from .taumol_sw_fused import taumol_sw_fused
-    from ...ops.gather_interp import use_pallas_default
-    want_pallas = (use_pallas if use_pallas is not None
-                   else use_pallas_default())
-    if (os.environ.get("ECRAD_FUSED_TAUMOL", "1") != "0" and want_pallas
-            and c2.colh2o.dtype == jnp.float32):
-        return taumol_sw_fused(c2, t, use_pallas=True,
-                               toa_first=toa_first)
+    sfluxzen (ncol, 112)."""
     if toa_first:
-        taug, taur, sflux = taumol_sw(c2, t, use_pallas=use_pallas)
+        taug, taur, sflux = taumol_sw(c2, t)
         return taug[:, ::-1], taur[:, ::-1], sflux
 
     dtype = c2.colh2o.dtype
@@ -120,7 +106,7 @@ def taumol_sw(c2: Coeffs, t: dict, use_pallas=None, toa_first=False):
     colmol = fl(c2.colmol)
 
     def ev(secs):
-        return eval_sections(secs, n, use_pallas=use_pallas, dtype=dtype)
+        return eval_sections(secs, dtype=dtype)
 
     def self_for_sections(band, gate_for_strat):
         """Self (tropo) + foreign continuum sections for a band."""

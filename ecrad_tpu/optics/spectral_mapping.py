@@ -88,9 +88,9 @@ def expand_to_g(values: jnp.ndarray, mapping: Optional[np.ndarray],
     if weights is not None:
         w = jnp.asarray(weights, values.dtype)  # (nvalue, nband)
         nvalue = w.shape[0]
-        # HIGHEST: a default-precision matmul is bf16 on TPU, which
-        # rounds every surface albedo to ~3 decimal digits (measured
-        # ~0.5 W/m2 on clear-sky sw_up, round 5)
+        # HIGHEST: a reduced-precision default (bf16 or TF32 inputs)
+        # rounds every surface albedo to ~3 decimal digits (~0.5 W/m2
+        # on clear-sky sw_up)
         band_vals = jnp.matmul(values[:, :nvalue], w,
                                precision=jax.lax.Precision.HIGHEST)
     else:

@@ -4,7 +4,7 @@ benchmark.
 Reference parity (SURVEY §2.8/§5): the reference scales with an OpenMP
 block loop per node plus MPI only for setup-time coefficient-table
 broadcasts (rrtm_kgb*.F90 MPL_BROADCAST) and rank-0 NetCDF reads
-(ifs/easy_netcdf_read_mpi.F90). TPU-native equivalents:
+(ifs/easy_netcdf_read_mpi.F90). Equivalents here:
 
  - `init_distributed`: jax.distributed initialization across hosts
    (coordinator env-driven); a no-op single-host.

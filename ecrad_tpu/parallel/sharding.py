@@ -2,22 +2,36 @@
 
 The radiation problem is embarrassingly parallel over columns
 (SURVEY §2.8: the reference's OpenMP block loop / MPI table broadcast).
-TPU-native equivalent: one 1-D mesh axis 'columns'; every per-column
-array is sharded on its leading axis, coefficient tables replicate as
-jit constants. No collectives are needed in compute — only at I/O.
+Here: one 1-D mesh axis 'columns'; every per-column array is sharded on
+its leading axis, coefficient tables are replicated jit constants.
+`column_parallel` runs the radiation step as one program per device on
+that device's columns (shard_map), so the step needs no collectives,
+whatever kernels it calls; only I/O moves data between devices.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import re
+from typing import Callable, Optional, Sequence
 
 import jax
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+AXIS = "columns"
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter",
+               "collective-permute", "all-to-all")
+
 
 def column_mesh(devices: Optional[Sequence] = None) -> Mesh:
     devices = list(devices if devices is not None else jax.devices())
-    return Mesh(np.asarray(devices), axis_names=("columns",))
+    return Mesh(np.asarray(devices), axis_names=(AXIS,))
+
+
+def _column_spec(x, ndev):
+    """shard_columns' placement: split the leading axis where it divides
+    by the mesh size, else replicate."""
+    return (P(AXIS) if np.ndim(x) > 0 and np.shape(x)[0] % ndev == 0
+            else P())
 
 
 def shard_columns(pytrees, mesh: Optional[Mesh] = None,
@@ -35,7 +49,7 @@ def shard_columns(pytrees, mesh: Optional[Mesh] = None,
     multiproc = len({d.process_index for d in mesh.devices.flat}) > 1
 
     if multiproc:
-        col_sharding = NamedSharding(mesh, P("columns"))
+        col_sharding = NamedSharding(mesh, P(AXIS))
         rep_sharding = NamedSharding(mesh, P())
 
         def place_mp(x):
@@ -55,6 +69,33 @@ def shard_columns(pytrees, mesh: Optional[Mesh] = None,
         if x.shape[0] % ndev != 0:
             # pad-free fallback: replicate awkward remainders
             return jax.device_put(x, NamedSharding(mesh, P()))
-        return jax.device_put(x, NamedSharding(mesh, P("columns")))
+        return jax.device_put(x, NamedSharding(mesh, P(AXIS)))
 
     return jax.tree.map(place, pytrees)
+
+
+def column_parallel(fn: Callable, mesh: Mesh) -> Callable:
+    """jit(fn) over column-sharded arguments (shard_columns), as one
+    program per device on that device's columns. Arguments are split
+    as shard_columns places them; every output is split on its leading
+    (column) axis."""
+    ndev = mesh.devices.size
+
+    def run(*args):
+        specs = jax.tree.map(lambda x: _column_spec(x, ndev), args)
+        step = jax.shard_map(fn, mesh=mesh, in_specs=specs,
+                             out_specs=P(AXIS), check_vma=False)
+        return step(*args)
+
+    return jax.jit(run)
+
+
+def count_collectives(hlo_text: str) -> dict:
+    """Cross-device collective ops in compiled HLO text, by op name."""
+    counts = {}
+    for name in COLLECTIVES:
+        # op invocations ("= f32[..] all-gather(" / "all-gather-start(")
+        n = len(re.findall(rf"\s{name}(?:-start)?\(", hlo_text))
+        if n:
+            counts[name] = n
+    return counts

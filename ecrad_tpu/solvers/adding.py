@@ -6,34 +6,31 @@ level loops (direct-beam descent, albedo/source ascent, flux descent) are
 first-order linear (or Moebius) recurrences. Two implementations:
 
 - `method='sequential'` (default): `jax.lax.scan` over levels carrying an
-  (ncol, ng) state. For realistic level counts (~137) this is the fastest
-  on TPU — each step is one fused VPU pass and the scan overhead is small
-  — and it is numerically the reference's own recurrence.
+  (ng, ncol) state, the reference's own recurrence. With gfirst=True on
+  a GPU the sweeps of one solve run instead as one Pallas (Triton)
+  kernel (ops/adding_gpu.py); the `_*_sequential` scans here are its
+  reference.
 - `method='scan'`: `jax.lax.associative_scan` (parallel prefix over 2x2
   Moebius / affine transfer operators). O(log nlev) depth but ~2.5x more
-  memory traffic; retained for very deep grids and as an independent
-  cross-check of the recurrences (see tests/test_adding.py).
+  memory traffic; kept as an independent cross-check of the
+  recurrences (see tests/test_adding.py).
 
 All arrays are (..., nlev[+1], ng)-shaped with the level axis at -2,
 TOA first (ecRad orientation).
 """
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 
 
-def _use_fused():
-    """TPU: run the g-first sequential sweeps as fused Pallas kernels
-    (ops/adding_fused.py). ECRAD_ADDING=scan|kernel|interpret
-    overrides (tests)."""
-    mode = os.environ.get("ECRAD_ADDING", "")
-    if mode == "":
-        from ..ops.gather_interp import use_pallas_default
-        return use_pallas_default(), False
-    return mode in ("kernel", "interpret"), mode == "interpret"
+def _use_kernel(x) -> bool:
+    """Whether the g-first sweeps over x (nlev, ng, ncol) run as the
+    kernels of ops/adding_gpu.py: on a GPU, in float32, while flat
+    offsets fit int32. Elsewhere the lax.scan forms below run."""
+    from ..ops import adding_gpu
+    return (jax.default_backend() == "gpu" and x.dtype == jnp.float32
+            and adding_gpu.fits(*x.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +118,11 @@ def adding_lw(reflectance, transmittance, source_up, source_dn,
     """
     axis = -2
     if method == "sequential":
+        if gfirst and _use_kernel(reflectance):
+            from ..ops import adding_gpu
+            return adding_gpu.adding_lw(reflectance, transmittance,
+                                        source_up, source_dn,
+                                        emission_surf, albedo_surf)
         return _adding_lw_sequential(reflectance, transmittance, source_up,
                                      source_dn, emission_surf, albedo_surf,
                                      gfirst=gfirst)
@@ -144,11 +146,8 @@ def adding_lw(reflectance, transmittance, source_up, source_dn,
 
 
 def _to_gfirst(v):
-    """(..., nlev, ng) -> (nlev, ng, ...): scan xs/carries keep g in the
-    SUBLANE dim and the big batch dim in lanes. Measured on TPU v5e: the
-    per-step (ncol, ng) slices pad ng=140 lanes to 256 (1.8x HBM read
-    amplification) and run the adding scans at ~280 GB/s; (ng, ncol)
-    slices pad 140 sublanes to 144 and reach ~610 GB/s (2.2x faster)."""
+    """(..., nlev, ng) -> (nlev, ng, ...): per-level scan slices and
+    carries are (ng, ncol), the column batch minor."""
     return jnp.moveaxis(v, (-2, -1), (0, 1))
 
 
@@ -164,14 +163,7 @@ def _gvec(x):
 
 def _adding_lw_sequential(ref, trans, src_up, src_dn, emission_surf,
                           albedo_surf, gfirst=False):
-    if gfirst:
-        fused, interp = _use_fused()
-        if fused:
-            from ..ops.adding_fused import adding_lw_fused
-            return adding_lw_fused(ref, trans, src_up, src_dn,
-                                   emission_surf, albedo_surf,
-                                   interpret=interp)
-
+    """Two lax.scan sweeps (radiation_adding_ica_lw.F90:32-131)."""
     def up_body(carry, x):
         albedo_below, source_below = carry
         r, t, su, sd = x
@@ -212,11 +204,6 @@ def _adding_lw_sequential(ref, trans, src_up, src_dn, emission_surf,
 def _affine_seq(a, b, x0, reverse=False, gfirst=False):
     """Sequential counterpart of _affine_scan (lax.scan over levels)."""
     if gfirst:
-        fused, interp = _use_fused()
-        if fused:
-            from ..ops.adding_fused import affine_fused
-            return affine_fused(a, b, x0, reverse=reverse,
-                                interpret=interp)
         a_s, b_s, x0_g = a, b, x0
     else:
         a_s = _to_gfirst(a)
@@ -242,14 +229,33 @@ def lw_no_scattering_fluxes(transmittance, source_up, source_dn,
                             method="sequential", gfirst=False):
     """No-scattering LW fluxes: down then up
     (radiation_adding_ica_lw.F90:272-324). gfirst as in adding_lw."""
-    axis = -2
     if method == "sequential":
-        affine = lambda a, b, x0, reverse=False: _affine_seq(
-            a, b, x0, reverse=reverse, gfirst=gfirst)
-    else:
-        assert not gfirst, "gfirst supports the sequential method only"
-        affine = lambda a, b, x0, reverse=False: _affine_scan(
-            a, b, x0, axis, reverse=reverse)
+        if gfirst and _use_kernel(transmittance):
+            from ..ops import adding_gpu
+            return adding_gpu.lw_no_scattering(transmittance, source_up,
+                                               source_dn, emission_surf,
+                                               albedo_surf)
+        return _lw_no_scattering_sequential(
+            transmittance, source_up, source_dn, emission_surf,
+            albedo_surf, gfirst=gfirst)
+    assert not gfirst, "gfirst supports the sequential method only"
+    affine = lambda a, b, x0, reverse=False: _affine_scan(
+        a, b, x0, -2, reverse=reverse)
+    return _lw_no_scattering(affine, transmittance, source_up, source_dn,
+                             emission_surf, albedo_surf, gfirst)
+
+
+def _lw_no_scattering_sequential(transmittance, source_up, source_dn,
+                                 emission_surf, albedo_surf, gfirst=False):
+    """The lax.scan form of lw_no_scattering_fluxes."""
+    affine = lambda a, b, x0, reverse=False: _affine_seq(
+        a, b, x0, reverse=reverse, gfirst=gfirst)
+    return _lw_no_scattering(affine, transmittance, source_up, source_dn,
+                             emission_surf, albedo_surf, gfirst)
+
+
+def _lw_no_scattering(affine, transmittance, source_up, source_dn,
+                      emission_surf, albedo_surf, gfirst):
     zero = jnp.zeros_like(emission_surf)
     # down: fd_{j+1} = T_j fd_j + Sd_j
     flux_dn = affine(transmittance, source_dn, zero)
@@ -281,6 +287,12 @@ def adding_sw(reflectance, transmittance, ref_dir, trans_dir_diff,
     cs = jnp.asarray(cos_sza)[..., None]  # (..., 1) vs g axis
     zero = jnp.zeros_like(incoming_toa)
     if method == "sequential":
+        if gfirst and _use_kernel(reflectance):
+            from ..ops import adding_gpu
+            return adding_gpu.adding_sw(
+                reflectance, transmittance, ref_dir, trans_dir_diff,
+                trans_dir_dir, incoming_toa, albedo_surf_diffuse,
+                albedo_surf_direct, jnp.asarray(cos_sza).reshape(1, -1))
         return _adding_sw_sequential(
             reflectance, transmittance, ref_dir, trans_dir_diff,
             trans_dir_dir, incoming_toa, albedo_surf_diffuse,
@@ -322,13 +334,6 @@ def _adding_sw_sequential(ref, trans, ref_dir, trans_dir_diff,
     if gfirst:
         inc_g = incoming_toa
         cs_g = jnp.asarray(cs).reshape(1, -1)   # (1, ncol)
-        fused, interp = _use_fused()
-        if fused:
-            from ..ops.adding_fused import adding_sw_fused
-            return adding_sw_fused(ref, trans, ref_dir, trans_dir_diff,
-                                   trans_dir_dir, inc_g,
-                                   albedo_diffuse, albedo_direct, cs_g,
-                                   interpret=interp)
     else:
         inc_g = _gvec(incoming_toa)
         cs_g = _gvec(cs)                        # (1, ...) vs (ng, ...)

@@ -19,7 +19,6 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from ..utils import fastmath
 
 MAX_CLOUD_FRAC = 1.0 - 1.2e-6  # float32 counterpart of 1-10*eps
 MIN_FRAC = 1.0e-6
@@ -136,7 +135,7 @@ def _exp_exp_column(frac, overlap_param, pcc, alpha):
         nz = zerocum[jnp.clip(b, 0, nlev - 1)] - zerocum[jnp.clip(a, 0,
                                                                   nlev - 1)]
         return jnp.where(b <= a, 1.0,
-                         jnp.where(nz > 0, 0.0, fastmath.exp(lp)))
+                         jnp.where(nz > 0, 0.0, jnp.exp(lp)))
 
     i_max_next = jnp.concatenate([i_max[1:], jnp.array([big])])
     alpha_obj = range_product(i_max, i_max_next)

@@ -7,7 +7,7 @@ assign optical-depth scalings from the water-content PDF with vertically
 correlated random numbers (Exp-Ran correlates only within contiguous
 cloudy blocks; Exp-Exp across the whole trigger..base range).
 
-TPU-first differences from the reference: the lagged-Fibonacci stream is
+Differences from the reference: the lagged-Fibonacci stream is
 replaced by counter-based RNG (jax.random, threefry) keyed on the
 per-column iseed — preserving per-column determinism and shard-count
 invariance (CHANGELOG:17-19) but not the exact stream, so McICA results

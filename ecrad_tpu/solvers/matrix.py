@@ -14,7 +14,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..utils import fastmath
 
 # Pade-7 coefficients (radiation_matrix.F90:1128-1131)
 _THETA3 = 3.925724783138660
@@ -41,13 +40,10 @@ def _squaring_count(norm1, theta=_THETA3, max_count=_MAX_SQUARINGS):
     count = #{k in [0, max_count) : norm1 > theta * 2^k}, which
     equals ceil(log2(norm1/theta)) clipped to [0, max_count] —
     but computed with ONLY compares against exact power-of-two
-    multiples and a select-product, no transcendentals. ceil(log2(x))
-    rounds differently in Mosaic (Pallas) vs XLA for borderline lanes,
-    flipping the count by +-1 and making the kernel and its jnp
-    fallback run DIFFERENT scalings (the round-3 spartacus_sw_RD
-    1.25e-4 hardware-equivalence failure). This form is bit-identical
-    on every backend. Returns (count_i32, scale) with
-    scale = 2^-count exactly (products of 0.5 are exact in f32)."""
+    multiples and a select-product, no transcendentals, so that no
+    backend's log2 rounding can flip the count by +-1 for borderline
+    norms. Returns (count_i32, scale) with scale = 2^-count exactly
+    (products of 0.5 are exact in f32)."""
     expo = jnp.zeros(norm1.shape, jnp.int32)
     scale = jnp.ones_like(norm1)
     for k in range(max_count):
@@ -68,8 +64,8 @@ def expm(A):
     expo, scaling = _squaring_count(norm1)
     As = A * scaling[..., None, None]
 
-    # full f32 matmuls: TPU defaults to bf16 inputs, far too coarse for
-    # repeated squaring
+    # full f32 matmuls: a reduced-precision default (TF32 on a GPU) is
+    # far too coarse for repeated squaring
     mm = lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
     A2 = mm(As, As)
@@ -91,19 +87,16 @@ def expm(A):
 # ---------------------------------------------------------------------------
 # Leading-matrix-dims ("g-minor") variants.
 #
-# TPU tiling pads the two minor axes of every array to (8, 128); arrays
-# shaped (..., 9, 9) therefore waste ~25x memory and bandwidth. For the
-# SPARTACUS solvers all matrix algebra instead uses matrices shaped
-# (m, n, *batch) with the large batch axes minor: elementwise VPU code
-# with no padding. The matmuls are 9x9x9 FMA chains per batch element —
-# far below MXU granularity anyway.
+# For the SPARTACUS solvers all matrix algebra uses matrices shaped
+# (m, n, *batch) with the large batch axes minor, so every operation is
+# elementwise over the batch. The matmuls are 9x9x9 FMA chains per
+# batch element, far too small for a matrix unit.
 # ---------------------------------------------------------------------------
 
 
 def add_eye_g(M, c):
-    """M + c*I on (m, m, *batch) matrices, rebuilt entry-wise —
-    .at[i, i].add() lowers to scatter-add, which Mosaic (Pallas TPU)
-    does not implement."""
+    """M + c*I on (m, m, *batch) matrices, rebuilt entry-wise (no
+    scatter-add)."""
     m = M.shape[0]
     return jnp.stack([
         jnp.stack([M[i, j] + c if i == j else M[i, j]
@@ -127,9 +120,8 @@ def mv_g(a, x):
 def mm_gu(a, b):
     """mm_g with the k-contraction unrolled into explicit FMA chains.
 
-    Mosaic (Pallas TPU) cannot lower a reduction over a non-minor axis,
-    so kernel code (and its CPU fallback, for bit-tight equivalence)
-    uses this form; XLA scan bodies keep the broadcast-reduce mm_g."""
+    Used by the per-cell expm pipeline (fixed summation order); XLA
+    scan bodies keep the broadcast-reduce mm_g."""
     m, k = a.shape[0], a.shape[1]
     n = b.shape[1]
     rows = []
@@ -204,21 +196,11 @@ def solve_vec_g(A, x):
     return solve_g(A, x[:, None])[:, 0]
 
 
-def expm_g(A, fixed_squarings=None):
+def expm_g(A):
     """Matrix exponential with leading matrix dims: A (m, m, *batch).
 
     Same scaling-and-squaring Pade-7 as expm (radiation_matrix.F90
-    :1118-1216), in the padding-free layout.
-
-    fixed_squarings: run exactly that many masked squaring steps
-    (unrolled Python loop) instead of a while_loop to the batch max —
-    required inside Pallas kernels, and correct whenever the caller
-    can bound the 1-norm (per-lane masking makes extra steps no-ops).
-
-    Everything here is built from the unrolled mm_gu/norm1_g forms so
-    the same code lowers inside Pallas kernels (Mosaic has no
-    non-minor-axis reductions) and traces identically on the CPU
-    fallback path."""
+    :1118-1216), in the batch-minor layout."""
     norm1 = norm1_g(A)                             # (*batch,)
     expo, scale = _squaring_count(norm1)
     As = A * scale
@@ -234,11 +216,6 @@ def expm_g(A, fixed_squarings=None):
 
     def body(k, M):
         return jnp.where(k < expo, mm_gu(M, M), M)
-
-    if fixed_squarings is not None:
-        for k in range(fixed_squarings):
-            P = body(k, P)
-        return P
 
     # early-exit squaring: SPARTACUS operators rarely need more than a
     # few squarings (od and transfer rates are capped), so loop to the
@@ -268,7 +245,7 @@ def _pade7_g(As):
     return add_eye_g(solve_g(V - U, 2.0 * U), 1.0)
 
 
-def expm_reftrans_lw_g(Atl, Bbl, fixed_doublings=None):
+def expm_reftrans_lw_g(Atl, Bbl):
     """Stable (R, T) of the LW two-stream layer generator
     G = [[Atl, -Bbl], [Bbl, -Atl]] (g-minor blocks (n, n, *batch)).
 
@@ -288,10 +265,7 @@ def expm_reftrans_lw_g(Atl, Bbl, fixed_doublings=None):
     pair suffices; validated to 4e-13 against f64 expm extraction at
     moderate od. Reference semantics: radiation_spartacus_lw.F90
     :694-712 (computed there in double precision, where the transfer-
-    matrix form survives; this is the f32-stable reformulation).
-
-    fixed_doublings: unrolled masked step count for Pallas kernels
-    (see expm_g.fixed_squarings)."""
+    matrix form survives; this is the f32-stable reformulation)."""
     n = Atl.shape[0]
     # 1-norm: column abs-sums of [[Atl, -Bbl], [Bbl, -Atl]]; the left
     # and right halves have identical sums
@@ -326,11 +300,6 @@ def expm_reftrans_lw_g(Atl, Bbl, fixed_doublings=None):
         do = k < expo
         return jnp.where(do, Rn, R), jnp.where(do, Tn, T)
 
-    if fixed_doublings is not None:
-        for k in range(fixed_doublings):
-            R, T = step(k, (R, T))
-        return R, T
-
     expo_max = jnp.minimum(jnp.max(expo), _MAX_DOUBLINGS)
 
     def cond(state):
@@ -345,7 +314,7 @@ def expm_reftrans_lw_g(Atl, Bbl, fixed_doublings=None):
     return R, T
 
 
-def expm_reftrans_sw_g(M, C, D, fixed_doublings=None):
+def expm_reftrans_sw_g(M, C, D):
     """Stable (R, T, Rdir, Tdir, Tdd) of the SW layer generator
     [[M, C], [0, D]]: M (2n, 2n, *batch) diffuse block with the same
     [[X, -Y], [Y, -X]] structure as the LW generator, C (2n, n,
@@ -438,11 +407,6 @@ def expm_reftrans_sw_g(M, C, D, fixed_doublings=None):
                          (R, T, Rdir, Tdir, Tdd)))
 
     ops = (R, T, Rdir, Tdir, Tdd)
-    if fixed_doublings is not None:
-        for k in range(fixed_doublings):
-            ops = step(k, ops)
-        return ops
-
     expo_max = jnp.minimum(jnp.max(expo), _MAX_DOUBLINGS)
 
     def cond(state):
@@ -458,7 +422,7 @@ def expm_reftrans_sw_g(M, C, D, fixed_doublings=None):
 
 
 def _expm_exchange_2_entries(a, b):
-    factor = (1.0 - fastmath.exp(-(a + b))) / jnp.maximum(1e-12, a + b)
+    factor = (1.0 - jnp.exp(-(a + b))) / jnp.maximum(1e-12, a + b)
     r11 = 1.0 - factor * a
     r21 = factor * a
     r12 = factor * b
@@ -466,11 +430,10 @@ def _expm_exchange_2_entries(a, b):
     return [[r11, r12], [r21, r22]]
 
 
-def expm_sw_g(M, C, D, fixed_squarings=None):
+def expm_sw_g(M, C, D):
     """expm of the block-upper-triangular [[M, C], [0, D]] in the
     g-minor layout: M (2n, 2n, *batch) diffuse block, C (2n, n, *batch)
     direct->diffuse coupling, D (n, n, *batch) direct block.
-    fixed_squarings: see expm_g.
 
     The SPARTACUS SW Gamma matrix has exactly this sparsity (direct beam
     feeds diffuse but not vice versa; reference radiation_matrix.F90
@@ -532,11 +495,6 @@ def expm_sw_g(M, C, D, fixed_squarings=None):
         return tuple(jnp.where(do, new, old)
                      for new, old in zip(sq, p))
 
-    if fixed_squarings is not None:
-        for k in range(fixed_squarings):
-            P = step(k, P)
-        return P
-
     expo_max = jnp.minimum(jnp.max(expo), _MAX_SQUARINGS)
 
     def cond(state):
@@ -587,8 +545,8 @@ def _expm_exchange_3_entries(a, b, c, d):
     v31 = safe_div(c, d + lam1)
     v32 = safe_div(c, d + lam2)
     v33 = jnp.maximum(eps, c) / jnp.maximum(eps, d)
-    d1 = fastmath.exp(lam1)
-    d2 = fastmath.exp(lam2)
+    d1 = jnp.exp(lam1)
+    d2 = jnp.exp(lam2)
     d3 = one
 
     # solve V X = diag(d) for X columns via the same LU as the reference
@@ -612,9 +570,8 @@ def _expm_exchange_3_entries(a, b, c, d):
     x21, x22, x23 = col(jnp.zeros_like(a), d2, jnp.zeros_like(a))
     x31, x32, x33 = col(jnp.zeros_like(a), jnp.zeros_like(a), d3)
 
-    # R = V @ X expanded as scalar FMAs: stays in f32 (a bf16 matmul on
-    # trailing (3,3) dims would both lose precision and force layout-
-    # conversion copies on TPU)
+    # R = V @ X expanded as scalar FMAs: stays in f32, whatever the
+    # backend's default matmul precision
     V = [[v11, v12, v13], [one, one, one], [v31, v32, v33]]
     X = [[x11, x12, x13], [x21, x22, x23], [x31, x32, x33]]
     return [[V[i][0] * X[0][j] + V[i][1] * X[1][j] + V[i][2] * X[2][j]

@@ -52,16 +52,12 @@ def solver_mcica_sw(config: RadiationConfig, pdf_sampler: PdfSampler,
         is_beta_overlap=config.use_beta_overlap)
 
     # ---- clear + total-sky layer properties ----------------------------
-    # (ops/mcica_optics.py; use_pallas=False everywhere — the fused
-    # Pallas form was measured a 33% McICA LOSS on TPU, see CLAUDE.md
-    # measured losses (10); XLA's own fusions win here)
-    from ..ops.mcica_optics import sw_clear_total_reftrans
     frac_mask = cloud.fraction >= config.cloud_fraction_threshold
     (r_c, t_c, rd_c, tdd_c, tdir_c, r, t, rd, tdd, tdir) = \
-        sw_clear_total_reftrans(
+        _sw_clear_total_reftrans(
             od, ssa, g, od_cloud, ssa_cloud, g_cloud, band_from_g,
             od_scaling, frac_mask, cos_sza,
-            config.do_sw_delta_scaling_with_gases, use_pallas=False)
+            config.do_sw_delta_scaling_with_gases)
     up_c, dnd_c, dndir_c = adding_sw(
         r_c, t_c, rd_c, tdd_c, tdir_c, incoming_sw.T,
         albedo_diffuse.T, albedo_direct.T, jnp.maximum(cos_sza, 1e-10),
@@ -112,13 +108,10 @@ def solver_mcica_lw(config: RadiationConfig, pdf_sampler: PdfSampler,
         is_beta_overlap=config.use_beta_overlap)
 
     if not do_clear_scat and not config.do_lw_cloud_scattering:
-        # clear + total no-scattering pass (ops/mcica_optics.py;
-        # use_pallas=False — see the SW note)
-        from ..ops.mcica_optics import lw_clear_total_noscat
+        # clear + total no-scattering pass
         frac_mask = cloud.fraction >= config.cloud_fraction_threshold
-        t_c, su_c, sd_c, t, su, sd = lw_clear_total_noscat(
-            od, od_cloud, band_from_g, od_scaling, frac_mask,
-            planck_hl, use_pallas=False)
+        t_c, su_c, sd_c, t, su, sd = _lw_clear_total_noscat(
+            od, od_cloud, band_from_g, od_scaling, frac_mask, planck_hl)
         up_c, dn_c = lw_no_scattering_fluxes(t_c, su_c, sd_c, emis_g,
                                              alb_g, gfirst=True)
         up, dn = lw_no_scattering_fluxes(t, su, sd, emis_g, alb_g,
@@ -195,3 +188,44 @@ def solver_mcica_lw(config: RadiationConfig, pdf_sampler: PdfSampler,
 
     return (LwFluxes(up=up_tot, dn=dn_tot),
             LwFluxes(up=up_c, dn=dn_c), tcc, extras)
+
+
+def _sw_clear_total_reftrans(od, ssa, g, od_cloud, ssa_cloud, g_cloud,
+                             band_from_g, od_scaling, frac_mask, mu0,
+                             delta_all):
+    """Clear + masked-total SW layer reflectances.
+
+    od/ssa/g/od_scaling: (ncol, nlev, ng); *_cloud (ncol, nlev, nb);
+    frac_mask (ncol, nlev) bool (layer cloudy); mu0 (ncol,). Returns 10
+    g-first (nlev, ng, ncol) arrays: (r_c, t_c, rd_c, tdd_c, tdir_c, r,
+    t, rd, tdd, tdir) with the total-sky family equal to the clear one
+    where ~frac_mask (radiation_mcica_sw.F90:220-274)."""
+    mu = jnp.maximum(mu0, 1e-10)[None, :]
+    clear = _sw_reftrans(mu, _gf(od), _gf(ssa), _gf(g), delta_all)
+    od_t, ssa_t, g_t = combine_cloud_gas_sw(
+        od, ssa, g, od_cloud, ssa_cloud, g_cloud, band_from_g,
+        od_scaling=od_scaling, cloud_mask=frac_mask[..., None])
+    tot = _sw_reftrans(mu, _gf(od_t), _gf(ssa_t), _gf(g_t), delta_all)
+    mg = jnp.moveaxis(frac_mask, 1, 0)[:, None, :]
+    tot = tuple(jnp.where(mg, x, c) for x, c in zip(tot, clear))
+    return clear + tot
+
+
+def _lw_clear_total_noscat(od, od_cloud, band_from_g, od_scaling,
+                           frac_mask, planck_hl):
+    """Clear + masked-total LW no-scattering transmittance/sources
+    (do_lw_cloud_scattering=False: cloud od is absorption-only,
+    radiation_mcica_lw.F90). od/od_scaling (ncol, nlev, ng); od_cloud
+    (ncol, nlev, nb); planck_hl (ncol, nlev+1, ng); frac_mask (ncol,
+    nlev) bool. Returns 6 g-first (nlev, ng, ncol): (t_c, su_c, sd_c,
+    t, su, sd) with the total family equal to the clear one where
+    ~frac_mask."""
+    pt = _gf(planck_hl[:, :-1, :])
+    pb = _gf(planck_hl[:, 1:, :])
+    tc, suc, sdc = ts.lw_no_scattering_transmittance(_gf(od), pt, pb)
+    odc = od_cloud[:, :, band_from_g] * od_scaling
+    od_t = jnp.where(frac_mask[..., None], od + odc, od)
+    t, su, sd = ts.lw_no_scattering_transmittance(_gf(od_t), pt, pb)
+    mg = jnp.moveaxis(frac_mask, 1, 0)[:, None, :]
+    return (tc, suc, sdc, jnp.where(mg, t, tc), jnp.where(mg, su, suc),
+            jnp.where(mg, sd, sdc))

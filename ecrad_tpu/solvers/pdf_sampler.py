@@ -5,13 +5,13 @@ Reference parity: radiation/radiation_pdf_sampler.F90 — a 2-D LUT
 data/mcica_{gamma,lognormal}.nc, sampled bilinearly (sample_from_pdf
 :123-155 with cdf grid u_i=(i-1)/(ncdf-1)).
 
-TPU fast path: per-element gathers from the LUT are catastrophically slow
-on TPU (the scaling field is (ncol, nlev, ng) — >1e8 gathered elements),
-so at setup each fsd row's quantile curve is refit as a Chebyshev series
-of ln(x) in z = ndtri(cdf). Sampling then needs only a small per-(col,lev)
-coefficient-row gather plus an elementwise Clenshaw evaluation on the VPU
-— ~100x faster than the gather with max error ~1e-3 of the LUT value in
-the physically occupied range (see tests/test_cloud_generator.py).
+Fast path: instead of a per-element LUT gather over the (ncol, nlev, ng)
+scaling field (>1e8 elements), each fsd row's quantile curve is refit at
+setup as a Chebyshev series of ln(x) in z = ndtri(cdf). Sampling then
+needs only a small per-(col,lev) coefficient-row gather plus an
+elementwise Clenshaw evaluation, with max error ~1e-3 of the LUT value in
+the physically occupied range (see tests/test_cloud_generator.py). Its
+speed against the gather has not been measured on a GPU.
 """
 from __future__ import annotations
 
@@ -112,7 +112,7 @@ def sample_pdf(sampler: PdfSampler, fsd, cdf):
 
 
 def sample_pdf_fast(sampler: PdfSampler, fsd, cdf):
-    """Chebyshev-in-z evaluation of the PDF quantile (TPU fast path).
+    """Chebyshev-in-z evaluation of the PDF quantile (fast path).
 
     fsd: (ncol, nlev) — constant over g, so the coefficient-row gather is
     per (col, lev) only; cdf: (ncol, nlev, ng). Returns (ncol, nlev, ng).

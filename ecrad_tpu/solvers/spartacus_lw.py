@@ -10,11 +10,8 @@ do_3d_effects / do_3d_lw_multilayer_effects) and the downward flux pass.
 
 Like the shortwave solver, all matrix algebra keeps the small matrix
 dims LEADING with the per-level Gamma exponential evaluated inside a
-level scan (see spartacus_sw.py for the rationale: trailing small matrix
-dims pad ~25x on TPU). The per-level batch layout is (ng, ncol) — g in
-SUBLANES, columns in lanes — because ng=140 in the lane dim pads to 256
-(1.8x HBM amplification on every scan step) while 140 sublanes pad only
-to 144 (measured 2.2x faster scans; see solvers/adding.py).
+level scan (see spartacus_sw.py). The per-level batch layout is (ng,
+ncol), the column batch minor, as in solvers/adding.py.
 """
 from __future__ import annotations
 
@@ -25,7 +22,6 @@ import numpy as np
 from ..config import PdfShape, RadiationConfig
 from . import two_stream as ts
 from .cloudless import LwFluxes
-from ..ops.gather_interp import use_pallas_default
 from ..ops.spartacus_reftrans import lw_reftrans_levels
 from .matrix import mm_g, mv_g, solve_g, solve_vec_g
 from .spartacus_sw import (TAN_DIFFUSE_ANGLE_3D, _diag_g, _diagonal_g,
@@ -173,24 +169,11 @@ def solver_spartacus_lw(setup, single_level, thermodynamics, cloud,
     clear_prev_g = jnp.moveaxis(clear_prev, 1, 0)
     use_matrix = cfg.do_3d_effects or cfg.do_3d_lw_multilayer_effects
 
-    # Fused Pallas adding sweeps on TPU (ops/spartacus_adding.py);
-    # lax.scan below is the CPU fallback. ECRAD_SPARTACUS_ADDING
-    # overrides for tests (scan|kernel|interpret). The fused sweeps
-    # hardcode the 3-region packed-row layout; nreg=2 takes the scan.
-    import os
-    mode = os.environ.get("ECRAD_SPARTACUS_ADDING", "")
-    use_kernel = ((use_pallas_default() if mode == ""
-                   else mode in ("kernel", "interpret")) and nreg == 3)
-
     # Per-level reflectance/transmittance/sources for ALL levels at
-    # once (the fused Pallas pipeline on TPU; identical jnp cell math
-    # per level on CPU — see ops/spartacus_reftrans.py and the SW
-    # solver's rationale). On the kernel path the packed [R|T|SU|SD]
-    # rows ARE the adding kernels' hist layout — no unpack/re-concat.
-    hist_or_parts = lw_reftrans_levels(
+    # once (ops/spartacus_reftrans.py)
+    hist = lw_reftrans_levels(
         cfg, nreg, od_r, ssa_r, g_r, tr_g, se_g, planck_top_g,
-        planck_bot_g, frac_g, use3d_g, clear_g, use_pallas_default(),
-        packed=use_kernel)
+        planck_bot_g, frac_g, use3d_g, clear_g)
 
     # ---------------- upward pass -----------------------------------------
     alb0 = _diag_g(jnp.stack([albedo.T] * nreg, 0), nreg)
@@ -199,30 +182,7 @@ def solver_spartacus_lw(setup, single_level, thermodynamics, cloud,
     clear_next = jnp.concatenate(
         [clear_lay[:, 1:], jnp.ones((ncol, 1), bool)], axis=1)
 
-    if use_kernel:
-        from ..ops.spartacus_adding import lw_adding_sweeps, lw_pack_cols
-        hist = hist_or_parts
-        cols = lw_pack_cols(um_g, vm_g, clear_g, clear_prev_g,
-                            jnp.moveaxis(clear_next, 1, 0))
-        init_up = jnp.concatenate(
-            [alb0.reshape(nreg * nreg, ng, ncol), src0], axis=0)
-        src_top, ys_up12, dn6 = lw_adding_sweeps(
-            cfg, use_matrix, hist, cols, init_up,
-            interpret=(mode == "interpret"))
-        fup_hist = dn6[:, 0:3]
-        fdn_hist = dn6[:, 3:6]
-        # transmittance matrices for the LW-derivatives finish: a
-        # 9-row slice of the packed hist
-        trans = hist[:, nreg * nreg:2 * nreg * nreg].reshape(
-            nlev, nreg, nreg, ng, ncol)
-        up_prof = jnp.concatenate(
-            [src_top.sum(0)[None], fup_hist.sum(1)], axis=0)
-        dn_prof = jnp.concatenate(
-            [jnp.zeros((1, ng, ncol), dtype), fdn_hist.sum(1)], axis=0)
-        return _lw_finish(cfg, up_prof, dn_prof, trans, um_g, rc, tc,
-                          suc, sdc, emission, albedo, tcc)
-
-    R_h, T_h, SU_h, SD_h = hist_or_parts
+    R_h, T_h, SU_h, SD_h = hist
 
     fields_up = (R_h, T_h, SU_h, SD_h, clear_g,
                  clear_prev_g, um_g[:nlev], vm_g[:nlev])
@@ -312,8 +272,7 @@ def solver_spartacus_lw(setup, single_level, thermodynamics, cloud,
 
 def _lw_finish(cfg, up_prof, dn_prof, trans, um_g, rc, tc, suc, sdc,
                emission, albedo, tcc):
-    """LW derivatives + clear-sky adding (shared by the Pallas-kernel
-    and lax.scan sweep paths)."""
+    """LW derivatives + clear-sky adding after the sweeps."""
     total = LwFluxes(up=up_prof, dn=dn_prof)
 
     extras = {}

@@ -10,11 +10,10 @@ treatments Zero/Edge-only/Explicit/Non-fractal/Maximum (:930-1430
 incl. step_migrations for horizontal migration distances), downward flux
 pass (:1484-1650).
 
-TPU mapping: all columns/g-points batched; levels via lax.scan. All
+Mapping: all columns/g-points batched; levels via lax.scan. All
 matrix algebra uses the "g-minor" layout (m, n, ng, ncol) — matrix dims
-leading, batch dims minor — because TPU tiling pads the two minor axes
-to (8, 128) and trailing 9x9 matrices would waste ~25x memory/bandwidth
-(see solvers/matrix.py mm_g/expm_g/solve_g). The per-layer Gamma
+leading, batch dims minor — so every matrix operation is elementwise
+over the batch (see solvers/matrix.py mm_g/expm_g/solve_g). The per-layer Gamma
 exponentials are evaluated inside the level scan so only one level's
 (3*nreg)^2 operator is ever resident. The reference's per-layer ng3D
 prefix (g-points ordered by od) becomes a per-(col,g) mask selecting
@@ -27,7 +26,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import Entrapment, PdfShape, RadiationConfig
-from ..ops.gather_interp import use_pallas_default
 from ..ops.spartacus_reftrans import (_diag_g, _zero_cloudy_vec,
                                       _zero_offdiag_clear,
                                       sw_reftrans_levels)
@@ -245,71 +243,18 @@ def solver_spartacus_sw(setup, single_level, thermodynamics, cloud,
                                 axis=1)
     not_top = jnp.arange(nlev) > 0
 
-    # Per-level reflectance/transmittance for ALL levels at once. On
-    # TPU this is the fused Pallas pipeline (Gamma -> blockwise Pade
-    # expm -> solves -> MW select in VMEM; ops/spartacus_reftrans.py) —
-    # the same chain expressed as XLA ops inside the scan round-trips
-    # every (6, 6, ng, ncol) intermediate through HBM and was the
-    # binding cost of the whole solver (56 of 143 ms at 512 cols). The
-    # CPU path runs the identical cell math per level inside a scan.
-    # The five histories cost 45 * nlev * ng * ncol * 4 B (1.4 GB at
-    # 512 columns) — SPARTACUS benches at 512 for this reason.
-    # On TPU the two sequential adding sweeps run as fused Pallas
-    # kernels with the scan carry resident in VMEM
-    # (ops/spartacus_adding.py); the lax.scan path below is the CPU
-    # fallback and the entrapment-diagnostics path.
-    # ECRAD_SPARTACUS_ADDING=scan|kernel|interpret overrides (tests).
-    # The fused sweeps hardcode the 3-region packed-row layout; nreg=2
-    # configs take the scan path.
-    import os
-    mode = os.environ.get("ECRAD_SPARTACUS_ADDING", "")
-    use_kernel = ((use_pallas_default() if mode == ""
-                   else mode in ("kernel", "interpret"))
-                  and not cfg.do_print_entrapment_data and nreg == 3)
-
-    # Kernel path: reftrans emits the packed [R|T|RD|TD|TDD] hist rows
-    # the adding kernels consume directly (the unpack + re-concat
-    # round trip costed ~17 ms of HBM copies at 2048 columns).
-    hist_or_parts = sw_reftrans_levels(
-        cfg, nreg, od_r, ssa_r, g_r, trd_g, trf_g, mu0, use3d_g,
-        clear_g, use_pallas_default(), packed=use_kernel)
+    # Per-level reflectance/transmittance for ALL levels at once
+    # (ops/spartacus_reftrans.py). The five histories cost
+    # 45 * nlev * ng * ncol * 4 B of device memory.
+    hist = sw_reftrans_levels(
+        cfg, nreg, od_r, ssa_r, g_r, trd_g, trf_g, mu0, use3d_g, clear_g)
 
     clear_next = jnp.concatenate(
         [clear_lay[:, 1:], jnp.ones((ncol, 1), bool)], axis=1)
     # direct0: (nreg, ng, ncol)
     direct0 = incoming_sw.T[None] * reg_fracs[:, 0].T[:, None, :]
 
-    if use_kernel:
-        from ..ops.spartacus_adding import pack_cols, sw_adding_sweeps
-        hist = hist_or_parts
-        cols = pack_cols(
-            um_g, vm_g, jnp.moveaxis(cloud.fraction, 1, 0),
-            jnp.moveaxis(dz, 1, 0),
-            jnp.moveaxis(x_layer_diffuse, 1, 0),
-            jnp.moveaxis(x_layer_direct, 1, 0),
-            jnp.moveaxis(edge_prev, 0, 1), inv_eff_prev.T,
-            overlap_prev.T, jnp.moveaxis(reg_fracs, 0, 1),
-            jnp.moveaxis(jnp.concatenate(
-                [reg_fracs[:, :1], reg_fracs[:, :-1]], axis=1), 0, 1),
-            clear_g, clear_prev_g, jnp.moveaxis(clear_next, 1, 0),
-            not_top, tan_sza)
-        init_up = jnp.concatenate(
-            [alb0.reshape(nreg * nreg, ng, ncol),
-             albdir0.reshape(nreg * nreg, ng, ncol)], axis=0)
-        alb_top, albdir_top, ys_up18, dn9 = sw_adding_sweeps(
-            cfg, hist, cols, init_up, direct0,
-            interpret=(mode == "interpret"))
-        fup0 = mv_g(albdir_top, direct0)
-        fup_hist = dn9[:, 0:3]
-        fdn_hist = dn9[:, 3:6]
-        ddn_hist = dn9[:, 6:9]
-        total, clear, tcc = _sw_finish(
-            cfg, fup0, fup_hist, fdn_hist, ddn_hist, direct0, mu0,
-            cos_sza, incoming_sw, albedo_diffuse, albedo_direct,
-            rc, tc, rdc, tdc, tddc, tcc)
-        return total, clear, tcc, {}
-
-    R_h, T_h, RD_h, TD_h, TDD_h = hist_or_parts
+    R_h, T_h, RD_h, TD_h, TDD_h = hist
 
     # Per-level inputs in natural TOA->surface order; the upward scan
     # runs with reverse=True (surface first), so no flip copies are
@@ -403,7 +348,7 @@ def solver_spartacus_sw(setup, single_level, thermodynamics, cloud,
             x_dir = jnp.where(both_clear, x_dir, x_dir_m)
 
         # R/T/TD/TDD are NOT re-emitted: the down pass reads the
-        # original kernel histories directly — scan ys are materialized
+        # reftrans histories directly — scan ys are materialized
         # buffers, so re-emitting unchanged xs doubles their HBM writes
         ys = (alb, albdir)
         if cfg.do_print_entrapment_data:
@@ -475,8 +420,8 @@ def solver_spartacus_sw(setup, single_level, thermodynamics, cloud,
 def _sw_finish(cfg, fup0, fup_hist, fdn_hist, ddn_hist, direct0, mu0,
                cos_sza, incoming_sw, albedo_diffuse, albedo_direct,
                rc, tc, rdc, tdc, tddc, tcc):
-    """Flux profiles + clear-sky adding + daylight masking (shared by
-    the Pallas-kernel and lax.scan sweep paths)."""
+    """Flux profiles + clear-sky adding + daylight masking after the
+    sweeps."""
     def profile(top, hist):
         # top (nreg, ng, ncol); hist (nlev, nreg, ng, ncol)
         # -> g-first (nlev+1, ng, ncol)

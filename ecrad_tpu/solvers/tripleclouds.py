@@ -9,14 +9,11 @@ Reference parity:
     radiation_tripleclouds_lw.F90 (upward albedo/source accumulation
     with V/U region exchange at interfaces, then downward flux pass)
 
-State layout: region-leading g-first (nreg, ng, ncol) — the big
-dims stay minor so TPU (8, 128) tiling pads nothing; an (ncol, nreg,
-ng) state would pad its (3, ng) minor axes ~3x and the region-exchange
-einsums would lower to convolutions. Level recurrences are
-jax.lax.scan (region coupling at interfaces makes the recurrence
-matrix-valued, so the Moebius-scan trick of the ICA adding does not
-apply); per-level arrays are indexed by the scan counter — pre-stacked
-xs were measured slower (see CLAUDE.md).
+State layout: region-leading g-first (nreg, ng, ncol), the big dims
+minor, so the region exchange is elementwise over the batch. Level
+recurrences are jax.lax.scan (region coupling at interfaces makes the
+recurrence matrix-valued, so the Moebius-scan trick of the ICA adding
+does not apply); per-level arrays are indexed by the scan counter.
 """
 from __future__ import annotations
 
@@ -25,7 +22,6 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from ..utils import fastmath
 
 from ..config import PdfShape, RadiationConfig
 from ..optics.cloud import delta_eddington
@@ -62,7 +58,7 @@ def calc_region_properties(nreg: int, do_gamma: bool, cloud_fraction,
         raise ValueError("only 2 or 3 regions supported")
     if not do_gamma:
         # lognormal split
-        s2 = fastmath.exp(-jnp.sqrt(jnp.log(fsd ** 2 + 1.0))) / jnp.sqrt(
+        s2 = jnp.exp(-jnp.sqrt(jnp.log(fsd ** 2 + 1.0))) / jnp.sqrt(
             fsd ** 2 + 1.0)
         f2 = 0.5 * cf
         f3 = 0.5 * cf
@@ -70,7 +66,7 @@ def calc_region_properties(nreg: int, do_gamma: bool, cloud_fraction,
     else:
         f2 = cf * jnp.clip(LOWER_FRAC_INTERCEPT + fsd * LOWER_FRAC_GRAD,
                            MIN_LOWER_FRAC, MAX_LOWER_FRAC)
-        s2 = MIN_GAMMA_OD_SCALING + (1.0 - MIN_GAMMA_OD_SCALING) * fastmath.exp(
+        s2 = MIN_GAMMA_OD_SCALING + (1.0 - MIN_GAMMA_OD_SCALING) * jnp.exp(
             -fsd * (1.0 + 0.5 * fsd * (1.0 + 0.5 * fsd)))
         f3 = cf - f2
         s3 = (cf - f2 * s2) / jnp.maximum(f3, 1e-12)
@@ -160,9 +156,8 @@ def _region_props_sw_g(cfg, band_from_g, od_g, ssa_g, g_g, odc_g,
     (nlev, nreg, ncol), cmask_g (nlev, 1, ncol); returns stacks
     (nlev, nreg, ng, ncol). Computing region properties (and the
     Meador-Weaver reftrans after them) directly g-first removes the
-    5 big output transposes the level sweeps otherwise pay (~14 ms
-    at 2048 columns, tools/profile_ops.py round 5) — only the 3
-    gas-optics inputs are transposed."""
+    5 big output transposes the level sweeps would otherwise need —
+    only the 3 gas-optics inputs are transposed."""
     nreg = sc_g.shape[1]
     outs_od, outs_ssa, outs_g = [od_g], [ssa_g], [g_g]
     for r in range(1, nreg):
@@ -203,7 +198,7 @@ def solver_tripleclouds_sw(setup, single_level, cloud, od, ssa, g,
         cfg.cloud_fraction_threshold, cfg.use_beta_overlap)
 
     # region-leading g-first layout throughout (per-level slices are
-    # (nreg, ng, ncol): regions leading, g in SUBLANES — see
+    # (nreg, ng, ncol): regions leading, columns minor — see
     # solvers/adding.py _to_gfirst). Only the gas-optics inputs are
     # transposed; region props + Meador-Weaver run natively g-first.
     gT = lambda x: jnp.transpose(x, (1, 2, 0))     # (nlev, ng, ncol)
@@ -244,101 +239,76 @@ def solver_tripleclouds_sw(setup, single_level, cloud, od, ssa, g,
         [jnp.ones((ncol, 1), bool), clear_lay[:, :-1]], axis=1)
 
     init_dir = incoming_sw.T[None] * reg_fracs[:, 0, :].T[:, None, :]
-    clear_next = jnp.concatenate(
-        [clear_lay[:, 1:], jnp.ones((ncol, 1), bool)], axis=1)
 
-    from .adding import _use_fused
-    fused, interp = _use_fused()
-    # the fused sweeps hardcode the 3-region layout (9 packed matrix
-    # rows, carry[0:3]/[3:6] slices, fast_expm_exchange_3_g); nreg=2 is
-    # a valid namelist config and must take the scan path
-    if fused and nreg == 3:
-        # fused level-sweep kernels (ops/adding_fused.py tc_sw_sweeps);
-        # the lax.scan below is the CPU fallback
-        from ..ops.adding_fused import tc_sw_sweeps
-        vm_rows = vm_g[:, :, :, 0, :].reshape(nlev + 1, nreg * nreg,
-                                              ncol)
-        clear_rows = jnp.stack(
-            [clear_lay.T, clear_prev.T, clear_next.T],
-            axis=1).astype(dtype)
-        _, albdir_top, _, dn = tc_sw_sweeps(
-            ref, trans, ref_dir, tdd, tdir, vm_rows, clear_rows,
-            jnp.concatenate([alb_surf, albdir_surf], 0), init_dir,
-            interpret=interp)
-        fup_hist = dn[:, 0:3]
-        fdn_hist = dn[:, 3:6]
-        ddn_hist = dn[:, 6:9]
-        flux_up0 = init_dir * albdir_top
-    else:
-        def up_body(carry, lev):
-            alb, albdir = carry                    # (nreg, ng, ncol)
-            r = ref[lev]
-            t = trans[lev]
-            rd = ref_dir[lev]
-            td = tdd[lev]
-            tdir_l = tdir[lev]
-            inv = 1.0 / (1.0 - alb * r)
-            alb_below = r + t * t * alb * inv
-            albdir_below = rd + (tdir_l * albdir + td * alb) * t * inv
-            is_clear = clear_lay[:, lev][None, None, :]
-            alb_below = jnp.where(is_clear & (~reg0), 0.0, alb_below)
-            albdir_below = jnp.where(is_clear & (~reg0), 0.0,
-                                     albdir_below)
-            # mix through V at this interface unless this & above clear
-            both_clear = (clear_lay[:, lev]
-                          & clear_prev[:, lev])[None, None, :]
-            vm_t = jnp.swapaxes(vm_g[lev], 0, 1)
-            alb_mixed = mix(vm_t, alb_below)
-            albdir_mixed = mix(vm_t, albdir_below)
-            alb_new = jnp.where(both_clear, alb_below, alb_mixed)
-            albdir_new = jnp.where(both_clear, albdir_below,
-                                   albdir_mixed)
-            return (alb_new, albdir_new), (alb, albdir)
+    def up_body(carry, lev):
+        alb, albdir = carry                    # (nreg, ng, ncol)
+        r = ref[lev]
+        t = trans[lev]
+        rd = ref_dir[lev]
+        td = tdd[lev]
+        tdir_l = tdir[lev]
+        inv = 1.0 / (1.0 - alb * r)
+        alb_below = r + t * t * alb * inv
+        albdir_below = rd + (tdir_l * albdir + td * alb) * t * inv
+        is_clear = clear_lay[:, lev][None, None, :]
+        alb_below = jnp.where(is_clear & (~reg0), 0.0, alb_below)
+        albdir_below = jnp.where(is_clear & (~reg0), 0.0,
+                                 albdir_below)
+        # mix through V at this interface unless this & above clear
+        both_clear = (clear_lay[:, lev]
+                      & clear_prev[:, lev])[None, None, :]
+        vm_t = jnp.swapaxes(vm_g[lev], 0, 1)
+        alb_mixed = mix(vm_t, alb_below)
+        albdir_mixed = mix(vm_t, albdir_below)
+        alb_new = jnp.where(both_clear, alb_below, alb_mixed)
+        albdir_new = jnp.where(both_clear, albdir_below,
+                               albdir_mixed)
+        return (alb_new, albdir_new), (alb, albdir)
 
-        levels_rev = jnp.arange(nlev - 1, -1, -1)
-        (alb_top, albdir_top), (alb_hist, albdir_hist) = jax.lax.scan(
-            up_body, (alb_surf, albdir_surf), levels_rev)
-        # alb_hist[k] = albedo at half-level below layer levels_rev[k];
-        # flip to (nlev, nreg, ng, ncol) indexed by layer
-        alb_below_layer = jnp.flip(alb_hist, 0)
-        albdir_below_layer = jnp.flip(albdir_hist, 0)
+    levels_rev = jnp.arange(nlev - 1, -1, -1)
+    (alb_top, albdir_top), (alb_hist, albdir_hist) = jax.lax.scan(
+        up_body, (alb_surf, albdir_surf), levels_rev)
+    # alb_hist[k] = albedo at half-level below layer levels_rev[k];
+    # flip to (nlev, nreg, ng, ncol) indexed by layer
+    alb_below_layer = jnp.flip(alb_hist, 0)
+    albdir_below_layer = jnp.flip(albdir_hist, 0)
 
-        # ---------------- downward pass ------------------------------
-        flux_dn0 = jnp.zeros((nreg, ng, ncol), dtype)
-        flux_up0 = init_dir * albdir_top
+    # ---------------- downward pass ------------------------------
+    flux_dn0 = jnp.zeros((nreg, ng, ncol), dtype)
+    flux_up0 = init_dir * albdir_top
 
-        def dn_body(carry, lev):
-            flux_dn, direct_dn = carry
-            r = ref[lev]
-            t = trans[lev]
-            rd = ref_dir[lev]
-            td = tdd[lev]
-            tdir_l = tdir[lev]
-            alb_b = alb_below_layer[lev]      # at half-level lev+1
-            albdir_b = albdir_below_layer[lev]
-            inv = 1.0 / (1.0 - r * alb_b)
-            fdn_new = (t * flux_dn
-                       + direct_dn * (tdir_l * albdir_b * r + td)) * inv
-            ddn_new = tdir_l * direct_dn
-            is_clear = clear_lay[:, lev][None, None, :]
-            fdn_new = jnp.where(is_clear & (~reg0), 0.0, fdn_new)
-            ddn_new = jnp.where(is_clear & (~reg0), 0.0, ddn_new)
-            fup_new = ddn_new * albdir_b + fdn_new * alb_b
-            # mix through V at interface lev+1 unless this & next clear
-            next_clear = jnp.where(lev + 1 < nlev,
-                                   clear_lay[:, jnp.minimum(lev + 1,
-                                                            nlev - 1)],
-                                   True)
-            both_clear = (clear_lay[:, lev] & next_clear)[None, None, :]
-            vm_l = vm_g[lev + 1]
-            fdn_mixed = mix(vm_l, fdn_new)
-            ddn_mixed = mix(vm_l, ddn_new)
-            fdn_out = jnp.where(both_clear, fdn_new, fdn_mixed)
-            ddn_out = jnp.where(both_clear, ddn_new, ddn_mixed)
-            return (fdn_out, ddn_out), (fup_new, fdn_out, ddn_out)
+    def dn_body(carry, lev):
+        flux_dn, direct_dn = carry
+        r = ref[lev]
+        t = trans[lev]
+        rd = ref_dir[lev]
+        td = tdd[lev]
+        tdir_l = tdir[lev]
+        alb_b = alb_below_layer[lev]      # at half-level lev+1
+        albdir_b = albdir_below_layer[lev]
+        inv = 1.0 / (1.0 - r * alb_b)
+        fdn_new = (t * flux_dn
+                   + direct_dn * (tdir_l * albdir_b * r + td)) * inv
+        ddn_new = tdir_l * direct_dn
+        is_clear = clear_lay[:, lev][None, None, :]
+        fdn_new = jnp.where(is_clear & (~reg0), 0.0, fdn_new)
+        ddn_new = jnp.where(is_clear & (~reg0), 0.0, ddn_new)
+        fup_new = ddn_new * albdir_b + fdn_new * alb_b
+        # mix through V at interface lev+1 unless this & next clear
+        next_clear = jnp.where(lev + 1 < nlev,
+                               clear_lay[:, jnp.minimum(lev + 1,
+                                                        nlev - 1)],
+                               True)
+        both_clear = (clear_lay[:, lev] & next_clear)[None, None, :]
+        vm_l = vm_g[lev + 1]
+        fdn_mixed = mix(vm_l, fdn_new)
+        ddn_mixed = mix(vm_l, ddn_new)
+        fdn_out = jnp.where(both_clear, fdn_new, fdn_mixed)
+        ddn_out = jnp.where(both_clear, ddn_new, ddn_mixed)
+        return (fdn_out, ddn_out), (fup_new, fdn_out, ddn_out)
 
-        (_, _), (fup_hist, fdn_hist, ddn_hist) = jax.lax.scan(
-            dn_body, (flux_dn0, init_dir), jnp.arange(nlev))
+    (_, _), (fup_hist, fdn_hist, ddn_hist) = jax.lax.scan(
+        dn_body, (flux_dn0, init_dir), jnp.arange(nlev))
     # assemble g-first half-level fluxes (nlev+1, ng, ncol)
     prof = lambda top, hist: jnp.concatenate(
         [top[None], hist.sum(1)], axis=0)
@@ -475,79 +445,58 @@ def solver_tripleclouds_lw(setup, single_level, cloud, od, ssa, g,
     clear_prev = jnp.concatenate(
         [jnp.ones((ncol, 1), bool), clear_lay[:, :-1]], axis=1)
 
-    clear_next = jnp.concatenate(
-        [clear_lay[:, 1:], jnp.ones((ncol, 1), bool)], axis=1)
-    from .adding import _use_fused
-    fused, interp = _use_fused()
-    # fused sweeps are 3-region-only (see the SW note above)
-    if fused and nreg == 3:
-        # fused level-sweep kernels (ops/adding_fused.py tc_lw_sweeps)
-        from ..ops.adding_fused import tc_lw_sweeps
-        vm_rows = vm_g[:, :, :, 0, :].reshape(nlev + 1, nreg * nreg,
-                                              ncol)
-        um_rows = um_g[:nlev, :, :, 0, :].reshape(nlev, nreg * nreg,
-                                                  ncol)
-        clear_rows = jnp.stack(
-            [clear_lay.T, clear_prev.T, clear_next.T],
-            axis=1).astype(dtype)
-        src_top, _, dn = tc_lw_sweeps(
-            ref, trans, sup, sdn, vm_rows, um_rows, clear_rows,
-            jnp.concatenate([alb_surf, src_surf], 0), interpret=interp)
-        fup_hist = dn[:, 0:3]
-        fdn_hist = dn[:, 3:6]
-    else:
-        def up_body(carry, lev):
-            alb, src = carry                       # (nreg, ng, ncol)
-            r = ref[lev]
-            t = trans[lev]
-            su = sup[lev]
-            sd = sdn[lev]
-            inv = 1.0 / (1.0 - alb * r)
-            alb_below = r + t * t * alb * inv
-            src_below = su + t * (src + alb * sd) * inv
-            is_clear = clear_lay[:, lev][None, None, :]
-            alb_below = jnp.where(is_clear & (~reg0), 0.0, alb_below)
-            src_below = jnp.where(is_clear & (~reg0), 0.0, src_below)
-            both_clear = (clear_lay[:, lev]
-                          & clear_prev[:, lev])[None, None, :]
-            alb_mixed = mix(jnp.swapaxes(vm_g[lev], 0, 1), alb_below)
-            src_mixed = mix(um_g[lev], src_below)
-            alb_new = jnp.where(both_clear, alb_below, alb_mixed)
-            src_new = jnp.where(both_clear, src_below, src_mixed)
-            return (alb_new, src_new), (alb, src)
+    def up_body(carry, lev):
+        alb, src = carry                       # (nreg, ng, ncol)
+        r = ref[lev]
+        t = trans[lev]
+        su = sup[lev]
+        sd = sdn[lev]
+        inv = 1.0 / (1.0 - alb * r)
+        alb_below = r + t * t * alb * inv
+        src_below = su + t * (src + alb * sd) * inv
+        is_clear = clear_lay[:, lev][None, None, :]
+        alb_below = jnp.where(is_clear & (~reg0), 0.0, alb_below)
+        src_below = jnp.where(is_clear & (~reg0), 0.0, src_below)
+        both_clear = (clear_lay[:, lev]
+                      & clear_prev[:, lev])[None, None, :]
+        alb_mixed = mix(jnp.swapaxes(vm_g[lev], 0, 1), alb_below)
+        src_mixed = mix(um_g[lev], src_below)
+        alb_new = jnp.where(both_clear, alb_below, alb_mixed)
+        src_new = jnp.where(both_clear, src_below, src_mixed)
+        return (alb_new, src_new), (alb, src)
 
-        levels_rev = jnp.arange(nlev - 1, -1, -1)
-        (alb_top, src_top), (alb_hist, src_hist) = jax.lax.scan(
-            up_body, (alb_surf, src_surf), levels_rev)
-        alb_below_layer = jnp.flip(alb_hist, 0)  # (nlev,nreg,ng,ncol)
-        src_below_layer = jnp.flip(src_hist, 0)
+    levels_rev = jnp.arange(nlev - 1, -1, -1)
+    (alb_top, src_top), (alb_hist, src_hist) = jax.lax.scan(
+        up_body, (alb_surf, src_surf), levels_rev)
+    alb_below_layer = jnp.flip(alb_hist, 0)  # (nlev,nreg,ng,ncol)
+    src_below_layer = jnp.flip(src_hist, 0)
 
-        # ---------------- downward pass ------------------------------
-        flux_dn0 = jnp.zeros((nreg, ng, ncol), dtype)
+    # ---------------- downward pass ------------------------------
+    flux_dn0 = jnp.zeros((nreg, ng, ncol), dtype)
 
-        def dn_body(carry, lev):
-            flux_dn = carry
-            r = ref[lev]
-            t = trans[lev]
-            sd = sdn[lev]
-            alb_b = alb_below_layer[lev]
-            src_b = src_below_layer[lev]
-            inv = 1.0 / (1.0 - r * alb_b)
-            fdn_new = (t * flux_dn + r * src_b + sd) * inv
-            is_clear = clear_lay[:, lev][None, None, :]
-            fdn_new = jnp.where(is_clear & (~reg0), 0.0, fdn_new)
-            fup_new = src_b + fdn_new * alb_b
-            next_clear = jnp.where(lev + 1 < nlev,
-                                   clear_lay[:, jnp.minimum(lev + 1,
-                                                            nlev - 1)],
-                                   True)
-            both_clear = (clear_lay[:, lev] & next_clear)[None, None, :]
-            fdn_mixed = mix(vm_g[lev + 1], fdn_new)
-            fdn_out = jnp.where(both_clear, fdn_new, fdn_mixed)
-            return fdn_out, (fup_new, fdn_out)
+    def dn_body(carry, lev):
+        flux_dn = carry
+        r = ref[lev]
+        t = trans[lev]
+        sd = sdn[lev]
+        alb_b = alb_below_layer[lev]
+        src_b = src_below_layer[lev]
+        inv = 1.0 / (1.0 - r * alb_b)
+        fdn_new = (t * flux_dn + r * src_b + sd) * inv
+        is_clear = clear_lay[:, lev][None, None, :]
+        fdn_new = jnp.where(is_clear & (~reg0), 0.0, fdn_new)
+        fup_new = src_b + fdn_new * alb_b
+        next_clear = jnp.where(lev + 1 < nlev,
+                               clear_lay[:, jnp.minimum(lev + 1,
+                                                        nlev - 1)],
+                               True)
+        both_clear = (clear_lay[:, lev] & next_clear)[None, None, :]
+        fdn_mixed = mix(vm_g[lev + 1], fdn_new)
+        fdn_out = jnp.where(both_clear, fdn_new, fdn_mixed)
+        return fdn_out, (fup_new, fdn_out)
 
-        _, (fup_hist, fdn_hist) = jax.lax.scan(dn_body, flux_dn0,
-                                               jnp.arange(nlev))
+    _, (fup_hist, fdn_hist) = jax.lax.scan(dn_body, flux_dn0,
+                                           jnp.arange(nlev))
     prof = lambda top, hist: jnp.concatenate(
         [top[None], hist.sum(1)], axis=0)        # g-first (nlev+1,ng,ncol)
     up_prof = prof(src_top.sum(0), fup_hist)

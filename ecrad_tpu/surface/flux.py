@@ -7,10 +7,10 @@ from __future__ import annotations
 from typing import Optional
 
 import jax.numpy as jnp
-from flax import struct
+from ..pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class SurfaceFlux:
     """Broadband fluxes into each facet of the surface (W m-2).
 

@@ -12,7 +12,7 @@ and after the atmosphere is solved, the downwelling fluxes at canopy top
 are partitioned back onto ground / roof / wall facets and canopy
 absorption.
 
-TPU-first: all columns are processed at once (the reference loops per
+All columns are processed at once (the reference loops per
 column); the tile loop is a static python loop over the (small, static)
 tuple of tile representations, so each tile type's branch is traced once
 with masked math instead of `select case` control flow.
@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..pytree import pytree_dataclass
 
 from ..constants import STEFAN_BOLTZMANN
 from ..solvers.two_stream import (LW_DIFFUSIVITY, lw_gammas,
@@ -35,7 +35,7 @@ from .properties import (ITileFlat, ITileUrban3D, ITileVegetation,
                          SurfaceDescription)
 
 
-@struct.dataclass
+@pytree_dataclass
 class SurfaceIntermediate:
     """Facet/region radiative properties stored between the boundary-
     condition and partitioning stages (radsurf_intermediate.F90:27-106).

@@ -3,7 +3,7 @@
 Reference parity: radsurf/radsurf_properties.F90 (surface_type :48-122,
 tile codes :28-41, facet index assignment :223-271, NetCDF reader :389-443).
 
-TPU-first design notes: the tile representation codes are *static* python
+Design notes: the tile representation codes are *static* python
 metadata (they select trace-time code paths, exactly as the reference's
 `select case` picks at runtime per tile); all per-column physical fields
 are dense jnp arrays with columns leading so the whole description shards
@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..pytree import pytree_dataclass, static_field
 
 # Tile representation codes (radsurf_properties.F90:28-32); 1-based to
 # match the values stored in input files.
@@ -60,7 +60,7 @@ def facet_region_indices(representation: Tuple[int, ...]):
     return ground, roof, wall, region
 
 
-@struct.dataclass
+@pytree_dataclass
 class SurfaceDescription:
     """Physical description of surface tiles (radsurf_properties.F90:48).
 
@@ -70,7 +70,7 @@ class SurfaceDescription:
     vegetation_sw_albedo (ncol, ntile, nalbedobands);
     vegetation_lw_emissivity (ncol, ntile, nemissbands). (The reference
     stores the spectral dimension in the middle; here it is innermost so
-    bands fill VPU lanes and facets broadcast.)
+    facets broadcast.)
     """
     skin_temperature: jnp.ndarray
     sw_albedo: jnp.ndarray
@@ -86,8 +86,7 @@ class SurfaceDescription:
     vegetation_sw_albedo: Optional[jnp.ndarray] = None
     vegetation_lw_emissivity: Optional[jnp.ndarray] = None
     # static metadata (selects trace-time code paths)
-    representation: Tuple[int, ...] = struct.field(
-        pytree_node=False, default=(ITileFlat,))
+    representation: Tuple[int, ...] = static_field((ITileFlat,))
 
     @property
     def is_simple(self) -> bool:

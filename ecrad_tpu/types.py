@@ -1,10 +1,9 @@
 """Core data model: pytree dataclasses for atmospheric inputs and flux outputs.
 
 These mirror the *capabilities* of the reference derived types
-(/root/reference/radiation/radiation_{single_level,thermodynamics,gas,cloud,
-aerosol,flux}.F90) with a TPU-first layout: structure-of-arrays, columns as
-the leading (shardable) batch dim, levels next, spectral (band/g) innermost
-so g-points fill VPU lanes.
+(radiation/radiation_{single_level,thermodynamics,gas,cloud,aerosol,
+flux}.F90) as structure-of-arrays: columns are the leading (shardable)
+batch dim, levels next, spectral (band/g) innermost.
 
 All fields are jnp arrays (or None); every class is a JAX pytree and can be
 passed through jit/vmap/pjit boundaries.
@@ -14,7 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import jax.numpy as jnp
-from flax import struct
+from .pytree import pytree_dataclass, static_field
 
 from .constants import (
     ACCEL_DUE_TO_GRAVITY,
@@ -29,7 +28,7 @@ IMassMixingRatio = 0
 IVolumeMixingRatio = 1
 
 
-@struct.dataclass
+@pytree_dataclass
 class SingleLevel:
     """Surface / single-level quantities.
 
@@ -55,7 +54,7 @@ class SingleLevel:
         return self.cos_sza.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Thermodynamics:
     """Pressure/temperature on half-levels.
 
@@ -96,7 +95,7 @@ class Thermodynamics:
         return self.replace(h2o_sat_liq=mmr)
 
 
-@struct.dataclass
+@pytree_dataclass
 class GasConcs:
     """Gas mixing ratios, (ncol, nlev, NUM_GASES) cube.
 
@@ -106,8 +105,7 @@ class GasConcs:
     """
     mixing_ratio: jnp.ndarray  # (ncol, nlev, NUM_GASES) MMR
     # static metadata: which gases are present (python bools; not traced)
-    is_present: tuple = struct.field(
-        pytree_node=False, default=(False,) * NUM_GASES)
+    is_present: tuple = static_field((False,) * NUM_GASES)
 
     @classmethod
     def create(cls, ncol: int, nlev: int, dtype=jnp.float32) -> "GasConcs":
@@ -151,7 +149,7 @@ class GasConcs:
         return self.get(gas) * scale
 
 
-@struct.dataclass
+@pytree_dataclass
 class Cloud:
     """Cloud water/ice content, effective sizes, fraction & heterogeneity.
 
@@ -243,7 +241,7 @@ class Cloud:
         )
 
 
-@struct.dataclass
+@pytree_dataclass
 class Aerosol:
     """Aerosol mass mixing ratios, (ncol, nlev, ntype).
 
@@ -252,8 +250,8 @@ class Aerosol:
     zeros outside for static shapes, recording the active range statically.
     """
     mixing_ratio: jnp.ndarray  # (ncol, nlev, ntype)
-    istartlev: int = struct.field(pytree_node=False, default=0)
-    iendlev: int = struct.field(pytree_node=False, default=-1)
+    istartlev: int = static_field(0)
+    iendlev: int = static_field(-1)
 
     # Optional direct optical-property input (od/ssa/g per band), the
     # reference's 'aerosol_optics direct' pathway.
@@ -264,7 +262,7 @@ class Aerosol:
     ssa_lw: Optional[jnp.ndarray] = None
 
 
-@struct.dataclass
+@pytree_dataclass
 class Flux:
     """Output fluxes on half-levels (W m-2).
 

@@ -25,12 +25,15 @@ _NATIVE_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 def _build_if_possible(libname: str, source: str) -> Optional[str]:
+    """The library built from native/<source>; (re)built when missing
+    or older than its source. The libraries are never tracked."""
     path = os.path.join(_DATA_DIR, libname)
-    if os.path.exists(path):
-        return path
     src = os.path.join(_NATIVE_SRC, source)
     if not os.path.exists(src):
         return None
+    if os.path.exists(path) and (os.path.getmtime(path)
+                                 >= os.path.getmtime(src)):
+        return path
     try:
         cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
                "-o", path, src]

@@ -1,41 +1,58 @@
-"""End-to-end clear-sky test on the reference meridian input."""
+"""End-to-end clear-sky tests on the in-repository IFS slice.
+
+Cloudless LW+SW, full RRTMG-IFS spectrum (ecrad_tpu/data/
+cloudless_slice8.nam) on the 8 IFS columns x 137 levels of ecrad_tpu/
+data/ifs_slice_8col.nc, in float32 on the CPU; the accuracy gate holds
+it to the float64 truth tests/goldens/cloudless_slice8_f64.npz
+(tools/make_slice_golden.py) with the bounds chip_smoke.py uses on the
+GPU.
+"""
 import jax
 import numpy as np
 import pytest
 
-from ecrad_tpu.config import RadiationConfig, Solver
+from chip_smoke import F64_BOUNDS, GOLDEN
+from ecrad_tpu.config import load_config_from_namelist
+from ecrad_tpu.constants import STEFAN_BOLTZMANN
 from ecrad_tpu.interface import radiation, setup_radiation
 from ecrad_tpu.io.input_reader import read_input
+from ecrad_tpu.paths import CLOUDLESS_NAMELIST, IFS_SLICE
 
-INPUT = "/root/reference/test/ifs/ecrad_meridian.nc"
+INPUT = IFS_SLICE
 
 
 @pytest.fixture(scope="module")
-def fluxes(test_ifs_dir):
+def fluxes():
     sl, thermo, gas, cloud, aer = read_input(INPUT)
-    cfg = RadiationConfig(
-        i_solver_sw=Solver.CLOUDLESS, i_solver_lw=Solver.CLOUDLESS,
-        use_aerosols=False,
-        do_nearest_spectral_sw_albedo=False,
-        sw_albedo_wavelength_bound=(0.25e-6, 0.44e-6, 0.69e-6,
-                                    1.19e-6, 2.38e-6),
-        i_sw_albedo_index=(1, 2, 3, 4, 5, 6),
-        do_nearest_spectral_lw_emiss=True,
-        lw_emiss_wavelength_bound=(8.0e-6, 13.0e-6),
-        i_lw_emiss_index=(1, 2, 1),
-    )
-    setup = setup_radiation(cfg)
+    setup = setup_radiation(load_config_from_namelist(CLOUDLESS_NAMELIST))
     flux = jax.jit(lambda s, t, g: radiation(setup, s, t, g))(
         sl, thermo, gas)
     return sl, flux
+
+
+@pytest.mark.parametrize("field", sorted(F64_BOUNDS))
+def test_f32_matches_f64_truth(fluxes, field):
+    """Per-field max-abs error of the float32 path against the pinned
+    float64 truth, within the clear-sky contract (W m-2)."""
+    _, flux = fluxes
+    want = np.load(GOLDEN)[field]
+    got = np.asarray(getattr(flux, field), np.float64)
+    assert got.shape == want.shape == (8, 138)
+    err = float(np.abs(got - want).max())
+    assert err <= F64_BOUNDS[field], f"{field}: {err} W m-2"
 
 
 def test_physical_ranges(fluxes):
     sl, flux = fluxes
     olr = np.asarray(flux.lw_up[:, 0])
     assert (olr > 120).all() and (olr < 360).all()
-    # global-ish mean OLR for this pole-to-pole slice
-    assert 200 < olr.mean() < 280
+    # OLR is emission from the surface and the levels: between the
+    # black-body fluxes of the column's coldest and warmest temperature
+    thermo = read_input(INPUT)[1]
+    t = np.concatenate([np.asarray(thermo.temperature_hl),
+                        np.asarray(sl.skin_temperature)[:, None]], axis=1)
+    assert (olr > STEFAN_BOLTZMANN * t.min(axis=1) ** 4).all()
+    assert (olr < STEFAN_BOLTZMANN * t.max(axis=1) ** 4).all()
     # LW down at TOA is zero
     np.testing.assert_allclose(np.asarray(flux.lw_dn[:, 0]), 0.0,
                                atol=1e-3)

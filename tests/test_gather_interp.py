@@ -1,9 +1,4 @@
-"""Unit tests for the table-interpolation op (ops/gather_interp.py).
-
-On CPU these exercise the jnp.take fallback; the TPU Pallas kernel is
-asserted equivalent by tools/check_kernel_equivalence.py (run on real
-hardware) and indirectly by the gas-optics golden tests.
-"""
+"""Unit tests for the table-interpolation op (ops/gather_interp.py)."""
 import numpy as np
 import jax.numpy as jnp
 
@@ -30,7 +25,7 @@ def test_eta_section_matches_manual():
     rng = np.random.RandomState(0)
     n = 257
     sec = _rand_eta_section(rng, n)
-    out = np.asarray(eval_sections([sec], n, use_pallas=False))
+    out = np.asarray(eval_sections([sec]))
     table = np.asarray(sec.table)
     r1, r2, g = table.shape
     want = np.zeros((g, n))
@@ -50,8 +45,8 @@ def test_eta_flatten_roundtrip():
     n = 64
     sec = _rand_eta_section(rng, n)
     plain = _eta_to_plain(sec)
-    a = np.asarray(eval_sections([sec], n, use_pallas=False))
-    b = np.asarray(eval_sections([plain], n, use_pallas=False))
+    a = np.asarray(eval_sections([sec]))
+    b = np.asarray(eval_sections([plain]))
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
 
 
@@ -63,7 +58,7 @@ def test_mixed_plain_and_eta():
     plain = Section(tab,
                     [jnp.asarray(rng.randint(0, 20, n).astype(np.int32))],
                     [jnp.asarray(rng.rand(n).astype(np.float32))])
-    got = np.asarray(eval_sections([plain, eta], n, use_pallas=False))
-    a = np.asarray(eval_sections([plain], n, use_pallas=False))
-    b = np.asarray(eval_sections([eta], n, use_pallas=False))
+    got = np.asarray(eval_sections([plain, eta]))
+    a = np.asarray(eval_sections([plain]))
+    b = np.asarray(eval_sections([eta]))
     np.testing.assert_allclose(got, a + b, rtol=1e-5, atol=1e-5)

@@ -1,10 +1,6 @@
-"""nregions=2 configs must work on every path (ADVICE r4: the fused
-Pallas sweeps hardcode the 3-region layout and must fall back to the
-lax.scan implementation for 2 regions instead of failing at trace
-time). Reference: radiation_config.F90 nregions (2 or 3),
+"""nregions=2 configs must run on every solver that splits regions.
+Reference: radiation_config.F90 nregions (2 or 3),
 radiation_regions.F90:35-92 (2-region split)."""
-import os
-
 import jax
 import numpy as np
 import pytest
@@ -22,43 +18,29 @@ def inputs(test_ifs_dir):
     return read_input(INPUT)
 
 
-def run(inputs, solver, adding_env, **kw):
+def run(inputs, solver, **kw):
     cfg = load_config_from_namelist(
         NAMELIST, directory_name="/root/reference/data",
         do_save_spectral_flux=False, do_canopy_fluxes_sw=False,
         do_canopy_fluxes_lw=False, i_solver_sw=solver,
         i_solver_lw=solver, nregions=2, **kw)
     setup = setup_radiation(cfg)
-    old = {k: os.environ.get(k) for k in
-           ("ECRAD_ADDING", "ECRAD_SPARTACUS_ADDING")}
-    try:
-        os.environ["ECRAD_ADDING"] = adding_env
-        os.environ["ECRAD_SPARTACUS_ADDING"] = adding_env
-        return jax.jit(lambda *a: radiation(setup, *a))(*inputs)
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    return jax.jit(lambda *a: radiation(setup, *a))(*inputs)
 
 
 def test_tripleclouds_two_regions(inputs):
-    """2-region Tripleclouds: the 'interpret' kernel request must fall
-    back to the scan path (3-region-only kernels) and match it."""
-    scan = run(inputs, Solver.TRIPLECLOUDS, "scan")
-    kern = run(inputs, Solver.TRIPLECLOUDS, "interpret")
+    """2-region Tripleclouds runs and gives finite, bounded fluxes."""
+    flux = run(inputs, Solver.TRIPLECLOUDS)
     for name in ("lw_up", "lw_dn", "sw_up", "sw_dn"):
-        a = np.asarray(getattr(scan, name))
-        b = np.asarray(getattr(kern, name))
+        a = np.asarray(getattr(flux, name))
         assert np.isfinite(a).all(), name
-        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-5,
-                                   err_msg=name)
+    day = np.asarray(inputs[0].cos_sza) > 0
+    assert (np.asarray(flux.sw_up[:, 0])[day]
+            <= np.asarray(flux.sw_dn[:, 0])[day] + 1e-2).all()
 
 
 def test_spartacus_two_regions(inputs):
-    flux = run(inputs, Solver.SPARTACUS, "interpret",
-               do_3d_effects=True)
+    flux = run(inputs, Solver.SPARTACUS, do_3d_effects=True)
     for name in ("lw_up", "lw_dn", "sw_up", "sw_dn"):
         a = np.asarray(getattr(flux, name))
         assert np.isfinite(a).all(), name

@@ -7,7 +7,7 @@ data/RADSRTM for shortwave) and the smaller coefficient tables (Planck
 fractions, continuum tables, minor-gas tables, solar source, g-point maps)
 as numeric literals inside its Fortran source. This tool reads both,
 performs the 256->140 (LW) and 224->112 (SW) g-point reductions, and stores
-everything the TPU gas-optics kernels need in one compressed npz.
+everything the gas-optics code needs in one compressed npz.
 
 Data provenance (reference files, for parity checking):
   - binary layout: ifsrrtm/rrtm_kgb*.F90 READ statements + yoerrto* dims

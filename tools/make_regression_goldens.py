@@ -76,9 +76,8 @@ def make_ifs_variant_goldens(outdir):
 
 def make_f64_goldens(outdir):
     """f64 CPU truth for every deterministic solver on the meridian
-    case — the anchors of the production-accuracy gates (bench.py
-    golden_check_line on TPU for SPARTACUS, and
-    tests/test_f64_validation.py per-field CPU-f32 gates for all
+    case — the anchors of the production-accuracy gates
+    (tests/test_f64_validation.py per-field CPU-f32 gates for all
     four): the analogue of the reference's golden-file strategy
     (test/ifs/README:33-37) against double precision, which is how
     the reference itself runs (parkind1 JPRB)."""
