@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Benchmark: columns per second of LW+SW radiation at 137 levels on a GPU.
+"""Benchmark: columns per second of clear-sky LW+SW radiation at 137
+levels on a GPU.
 
-    python bench.py [--solver Cloudless] [--columns 8192] [--repeat 10]
+    python bench.py [--columns 8192] [--repeat 10]
 
 The inputs are the 8 IFS columns of ecrad_tpu/data/ifs_slice_8col.nc
 tiled to --columns with seeded perturbations (ecrad_tpu/io/tiling.py);
-the configuration is ecrad_tpu/data/cloudless_slice8.nam with the
-chosen solver for LW and SW. Solvers other than Cloudless read cloud
-(and, for McICA, PDF) tables from the data root (ecrad_tpu/paths.py).
+the configuration is ecrad_tpu/data/cloudless_slice8.nam (Cloudless LW
+and SW, full RRTMG-IFS spectrum).
 
 Prints one JSON line: steady-state columns/s (median of
 --repeat calls, each ended by block_until_ready), compile seconds and
@@ -23,9 +23,6 @@ import time
 
 import numpy as np
 
-SOLVERS = ("Cloudless", "Homogeneous", "McICA", "Tripleclouds",
-           "SPARTACUS")
-
 
 def card_name_and_power_limit() -> str:
     return subprocess.run(
@@ -34,20 +31,15 @@ def card_name_and_power_limit() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def bench_solver(solver, ncol, repeat, seed=0):
+def bench_cloudless(ncol, repeat, seed=0):
     import jax
-    from ecrad_tpu.config import (Overlap, Solver,
-                                  load_config_from_namelist)
+    from ecrad_tpu.config import load_config_from_namelist
     from ecrad_tpu.interface import radiation, setup_radiation
     from ecrad_tpu.io.input_reader import read_input
     from ecrad_tpu.io.tiling import tile_columns
     from ecrad_tpu.paths import CLOUDLESS_NAMELIST, IFS_SLICE
 
-    kind = Solver[solver.upper()]
-    extra = ({"i_overlap_scheme": Overlap.EXPONENTIAL_EXPONENTIAL}
-             if kind == Solver.MCICA else {})
-    setup = setup_radiation(load_config_from_namelist(
-        CLOUDLESS_NAMELIST, i_solver_sw=kind, i_solver_lw=kind, **extra))
+    setup = setup_radiation(load_config_from_namelist(CLOUDLESS_NAMELIST))
     inputs = read_input(IFS_SLICE)
     dev = jax.devices()[0]
     batch = jax.device_put(
@@ -66,7 +58,7 @@ def bench_solver(solver, ncol, repeat, seed=0):
         times.append(time.perf_counter() - t0)
     per_call = float(np.median(times))
     return {
-        "metric": f"{solver.lower()}_columns_per_sec",
+        "metric": "cloudless_columns_per_sec",
         "value": ncol / per_call,
         "unit": "columns/s",
         "columns": ncol,
@@ -80,7 +72,6 @@ def bench_solver(solver, ncol, repeat, seed=0):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--solver", choices=SOLVERS, default="Cloudless")
     ap.add_argument("--columns", type=int, default=8192)
     ap.add_argument("--repeat", type=int, default=10)
     args = ap.parse_args(argv)
@@ -96,7 +87,7 @@ def main(argv=None):
     device = {"platform": devices[0].platform,
               "kind": devices[0].device_kind, "count": len(devices)}
     card = card_name_and_power_limit()
-    line = bench_solver(args.solver, args.columns, args.repeat)
+    line = bench_cloudless(args.columns, args.repeat)
     line.update(device=device, card=card)
     print(json.dumps(line), flush=True)
     return 0

@@ -1,3 +1,3 @@
-from .gather_interp import EtaSection, Section, eval_sections
+from .gather_interp import Section, eval_sections, separable_section
 
-__all__ = ["EtaSection", "Section", "eval_sections"]
+__all__ = ["Section", "eval_sections", "separable_section"]

@@ -31,37 +31,28 @@ class Section(NamedTuple):
     weights: Sequence[jnp.ndarray]
 
 
-class EtaSection(NamedTuple):
-    """A separable 2-D interpolation on a (R1, R2, G) table.
+def separable_section(table, grids, grid_terms, etas,
+                      eta_terms) -> Section:
+    """A separable 2-D interpolation on a (R1, R2, G) table, as a
+    plain Section over the flattened (R1*R2, G) table.
 
     RRTMG's binary-species (eta) lookups touch rows r = grid*R2 + eta
     with weights that factor exactly as an outer product
     w(grid_off, eta_off) = gw[grid_off] * ew[eta_off] per family
-    (jp/jt corner x eta 3-point scheme). It is evaluated as the
-    equivalent plain Section over the flattened (R1*R2, G) table
-    (_eta_to_plain): n_go * n_eo lookups per family.
+    (jp/jt corner x eta 3-point scheme): n_go * n_eo lookups per family.
 
     Per family f: grids[f] (N,) int32 base grid index; grid_terms[f] a
     list of (static_offset, weight (N,)); etas[f] (N,) int32 base eta
     index; eta_terms[f] a list of (static_offset, weight (N,)).
     """
-    table: jnp.ndarray                    # (R1, R2, G)
-    grids: Sequence[jnp.ndarray]
-    grid_terms: Sequence[Sequence]
-    etas: Sequence[jnp.ndarray]
-    eta_terms: Sequence[Sequence]
-
-
-def _eta_to_plain(sec: EtaSection) -> Section:
-    """Flatten an EtaSection to an equivalent plain Section."""
-    tab = np.asarray(sec.table)
+    tab = np.asarray(table)
     r1, r2, g = tab.shape
     rows, weights = [], []
-    for fam in range(len(sec.grids)):
-        base = sec.grids[fam] * r2
-        for go, gw in sec.grid_terms[fam]:
-            for eo, ew in sec.eta_terms[fam]:
-                rows.append(base + go * r2 + sec.etas[fam] + eo)
+    for grid, gterms, eta, eterms in zip(grids, grid_terms, etas,
+                                         eta_terms):
+        for go, gw in gterms:
+            for eo, ew in eterms:
+                rows.append(grid * r2 + go * r2 + eta + eo)
                 weights.append(gw * ew)
     return Section(tab.reshape(r1 * r2, g), rows, weights)
 
@@ -70,12 +61,10 @@ def eval_sections(sections: List[Section],
                   dtype=jnp.float32) -> jnp.ndarray:
     """Sum of the sections' weighted row lookups, (G, N).
 
-    Accepts a mix of plain Sections and EtaSections; all must share the
-    table's trailing (g) dimension. Rows are clipped to the table."""
+    All sections must share the table's trailing (g) dimension. Rows
+    are clipped to the table."""
     out = None
     for sec in sections:
-        if isinstance(sec, EtaSection):
-            sec = _eta_to_plain(sec)
         tab = jnp.asarray(sec.table, dtype)           # (R, G)
         for r, w in zip(sec.rows, sec.weights):
             term = jnp.take(tab, jnp.clip(r, 0, tab.shape[0] - 1),

@@ -91,13 +91,13 @@ def _eta_weights_tropo(specparm, fs):
 def _major_eta_sections(c, absa, absb, col1, col2, rat_a, rat_a1,
                         rat_b=None, rat_b1=None, col1_b=None,
                         col2_b=None, has_b=True):
-    """Binary-species major term as separable EtaSections.
+    """Binary-species major term as separable Sections.
 
     The (jp, jt) corner x eta-offset weights factor exactly as an outer
-    product, so each tropo/strat part is one EtaSection with two
-    families (jt and jt1) (ops/gather_interp.py EtaSection).
+    product, so each tropo/strat part is one separable_section with two
+    families (jt and jt1) (ops/gather_interp.py).
     """
-    from ...ops.gather_interp import EtaSection
+    from ...ops.gather_interp import separable_section
     dtype = col1.dtype
     trop = c.tropo
     tropf = trop.astype(dtype)
@@ -114,7 +114,7 @@ def _major_eta_sections(c, absa, absb, col1, col2, rat_a, rat_a1,
     offs = (-1, 0, 1, 2)
     ng = np.asarray(absa).shape[-1]
     tab_a = np.asarray(absa).reshape(-1, 9, ng)
-    secs.append(EtaSection(
+    secs.append(separable_section(
         tab_a,
         grids=[jnp.where(trop, grid0, 0), jnp.where(trop, grid1, 0)],
         grid_terms=[[(0, tropf * speccomb * c.fac00),
@@ -137,7 +137,7 @@ def _major_eta_sections(c, absa, absb, col1, col2, rat_a, rat_a1,
     grid0b = (c.jp - 13) * 5 + (c.jt - 1)
     grid1b = (c.jp - 12) * 5 + (c.jt1 - 1)
     tab_b = np.asarray(absb).reshape(-1, 5, ng)
-    secs.append(EtaSection(
+    secs.append(separable_section(
         tab_b,
         grids=[jnp.where(trop, 0, grid0b), jnp.where(trop, 0, grid1b)],
         grid_terms=[[(0, stratf * speccomb_b * c.fac00),
@@ -152,10 +152,10 @@ def _major_eta_sections(c, absa, absb, col1, col2, rat_a, rat_a1,
 
 
 def _minor_eta_section(ktab, jm, fm, indminor, minorfrac, scale):
-    """Minor-gas lookup with eta dependence as a separable EtaSection.
+    """Minor-gas lookup with eta dependence as a separable Section.
     ktab: (neta, 19, ng); weights factor as (eta) x (temperature)."""
-    from ...ops.gather_interp import EtaSection
-    return EtaSection(
+    from ...ops.gather_interp import separable_section
+    return separable_section(
         np.asarray(ktab),
         grids=[jm],
         grid_terms=[[(0, scale * (1.0 - fm)), (1, scale * fm)]],
@@ -261,7 +261,7 @@ def taumol_lw(c2: Coeffs, t: dict, toa_first=False):
     def eta_major_section(band, col1, col2, rat_a, rat_a1, rat_b=None,
                           rat_b1=None, col1_b=None, col2_b=None,
                           has_b=False):
-        """Returns a LIST of separable EtaSections (tropo absa +
+        """Returns a LIST of separable Sections (tropo absa +
         optional strat absb) — see _major_eta_sections."""
         return _major_eta_sections(
             c, t[f"lw{band}_absa"],

@@ -124,12 +124,12 @@ def taumol_sw(c2: Coeffs, t: dict, toa_first=False):
         ]
 
     def eta_tropo_section(absa, col1_2d, col2_2d, strrat):
-        """Tropospheric 9-eta major lookup as a separable EtaSection
-        (grid x eta one-hots; see ops/gather_interp.py). Note +9 on the
+        """Tropospheric 9-eta major lookup as a separable Section
+        (grid x eta; see ops/gather_interp.py). Note +9 on the
         flattened row = jt+1, i.e. a grid offset, and +1 an eta offset —
         the (fac corner) x (eta weight) product is exactly separable.
         Also returns 2D (js, fs) for the solar-source logic."""
-        from ...ops.gather_interp import EtaSection
+        from ...ops.gather_interp import separable_section
         speccomb2 = col1_2d + strrat * col2_2d
         js2, fs2 = _eta(col1_2d, speccomb2, 8.0)
         js, fs = fl(js2), fl(fs2)
@@ -137,7 +137,7 @@ def taumol_sw(c2: Coeffs, t: dict, toa_first=False):
         grid0 = (jp - 1) * 5 + (jt - 1)
         grid1 = jp * 5 + (jt1 - 1)
         ng_band = np.asarray(absa).shape[-1]
-        sec = EtaSection(
+        sec = separable_section(
             np.asarray(absa).reshape(-1, 9, ng_band),
             grids=[jnp.where(trop, grid0, 0), jnp.where(trop, grid1, 0)],
             grid_terms=[[(0, sc * f00), (1, sc * f10)],
@@ -149,7 +149,7 @@ def taumol_sw(c2: Coeffs, t: dict, toa_first=False):
         return sec, js2, fs2
 
     def eta_strat_section(absb, col1_2d, col2_2d, strrat):
-        from ...ops.gather_interp import EtaSection
+        from ...ops.gather_interp import separable_section
         speccomb2 = col1_2d + strrat * col2_2d
         js2, fs2 = _eta(col1_2d, speccomb2, 4.0)
         js, fs = fl(js2), fl(fs2)
@@ -157,7 +157,7 @@ def taumol_sw(c2: Coeffs, t: dict, toa_first=False):
         grid0 = (jp - 13) * 5 + (jt - 1)
         grid1 = (jp - 12) * 5 + (jt1 - 1)
         ng_band = np.asarray(absb).shape[-1]
-        sec = EtaSection(
+        sec = separable_section(
             np.asarray(absb).reshape(-1, 5, ng_band),
             grids=[jnp.where(trop, 0, grid0), jnp.where(trop, 0, grid1)],
             grid_terms=[[(0, sc * f00), (1, sc * f10)],

@@ -1,5 +1,5 @@
-"""Multi-device scaling: distributed init, sharded ingest, efficiency
-benchmark.
+"""Multi-device scaling: distributed init, sharded ingest, column
+blocking.
 
 Reference parity (SURVEY §2.8/§5): the reference scales with an OpenMP
 block loop per node plus MPI only for setup-time coefficient-table
@@ -11,10 +11,9 @@ broadcasts (rrtm_kgb*.F90 MPL_BROADCAST) and rank-0 NetCDF reads
  - `read_input_sharded`: every host reads only its own column slice of
    the NetCDF input (host-sharded ingest; the rank-0+broadcast pattern
    is unnecessary because coefficient tables are jit constants that XLA
-   replicates to every device at compile time).
- - `scaling_benchmark`: columns/s at 1..N devices with parallel
-   efficiency — the `nrepeat` steady-state methodology of the
-   reference's driver (ecrad_driver.F90:267,306) per device count.
+   replicates to every device at compile time). Run the step on it
+   with `sharding.column_parallel`.
+ - `chunk_columns`: fixed-size column blocks (the driver's nblocksize).
 
 The compute itself needs no collectives: columns are embarrassingly
 parallel and each shard's physics is self-contained (the per-column
@@ -24,14 +23,12 @@ MPI-count-invariance property, CHANGELOG:17-19).
 from __future__ import annotations
 
 import os
-import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-from .sharding import column_mesh, shard_columns
+from .sharding import shard_columns
 
 
 def init_distributed() -> Dict[str, int]:
@@ -61,7 +58,8 @@ def host_column_slice(ncol: int) -> slice:
 def read_input_sharded(path: str, driver_config=None):
     """Read only this host's columns of the driver input, then shard
     over local devices. Single-host: equivalent to read_input +
-    shard_columns."""
+    shard_columns. Run the step on the result with
+    sharding.column_parallel."""
     from ..io.input_reader import read_input
     parts = read_input(path, driver_config)
     ncol = parts[0].ncol
@@ -121,40 +119,3 @@ def chunk_columns(run_fn: Callable, block_size: int) -> Callable:
         return jax.tree.map(unprep, out)
 
     return wrapped
-
-
-def scaling_benchmark(run_fn: Callable, inputs, device_counts=None,
-                      nrepeat: int = 3) -> List[Dict]:
-    """Measure columns/s and parallel efficiency vs device count.
-
-    run_fn(*inputs) -> flux pytree; inputs are host arrays whose leading
-    axis is columns (must divide by every device count tested).
-    """
-    if device_counts is None:
-        n = len(jax.devices())
-        device_counts = [d for d in (1, 2, 4, 8, 16, 32) if d <= n]
-    ncol = jax.tree.leaves(inputs[0])[0].shape[0]
-    results = []
-    base_rate = None
-    for ndev in device_counts:
-        mesh = column_mesh(jax.devices()[:ndev])
-        sharded = shard_columns(inputs, mesh)
-        fn = jax.jit(run_fn)
-        out = fn(*sharded)
-        _ = float(jnp.asarray(jax.tree.leaves(out)[0]).ravel()[0])
-        times = []
-        for _ in range(nrepeat):
-            t0 = time.perf_counter()
-            out = fn(*sharded)
-            _ = float(jnp.asarray(jax.tree.leaves(out)[0]).ravel()[0])
-            times.append(time.perf_counter() - t0)
-        rate = ncol / min(times)
-        if base_rate is None:
-            base_rate = rate
-        results.append({
-            "devices": ndev,
-            "columns_per_sec": rate,
-            "speedup": rate / base_rate,
-            "efficiency": rate / (base_rate * ndev),
-        })
-    return results

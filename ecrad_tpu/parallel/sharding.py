@@ -27,17 +27,25 @@ def column_mesh(devices: Optional[Sequence] = None) -> Mesh:
     return Mesh(np.asarray(devices), axis_names=(AXIS,))
 
 
-def _column_spec(x, ndev):
-    """shard_columns' placement: split the leading axis where it divides
-    by the mesh size, else replicate."""
-    return (P(AXIS) if np.ndim(x) > 0 and np.shape(x)[0] % ndev == 0
-            else P())
+def column_count(args) -> int:
+    """The column count of radiation-style arguments: the first
+    argument's `ncol` (SingleLevel), else its first leaf's leading
+    dimension."""
+    ncol = getattr(args[0], "ncol", None)
+    return ncol if ncol is not None else np.shape(jax.tree.leaves(
+        args[0])[0])[0]
+
+
+def _is_column_leaf(x, ncol) -> bool:
+    return np.ndim(x) > 0 and np.shape(x)[0] == ncol
 
 
 def shard_columns(pytrees, mesh: Optional[Mesh] = None,
                   local_columns: Optional[int] = None):
-    """Place every array in the pytree with its leading (column) axis
-    sharded over the mesh. Scalars/0-d leaves are replicated.
+    """Place every array whose leading axis is the column axis (length
+    `column_count(pytrees)`) sharded on it over the mesh; every other
+    leaf (scalars, per-band arrays) is replicated. Columns that do not
+    divide by the mesh size are replicated too.
 
     When the mesh spans multiple processes (multi-host analogue of the
     reference's MPI ranks, ifs/easy_netcdf_read_mpi.F90), each process
@@ -63,26 +71,34 @@ def shard_columns(pytrees, mesh: Optional[Mesh] = None,
 
         return jax.tree.map(place_mp, pytrees)
 
+    ncol = column_count(pytrees)
+    split = ncol % ndev == 0
+
     def place(x):
         if not hasattr(x, "ndim") or x.ndim == 0:
             return x
-        if x.shape[0] % ndev != 0:
-            # pad-free fallback: replicate awkward remainders
-            return jax.device_put(x, NamedSharding(mesh, P()))
-        return jax.device_put(x, NamedSharding(mesh, P(AXIS)))
+        spec = P(AXIS) if split and _is_column_leaf(x, ncol) else P()
+        return jax.device_put(x, NamedSharding(mesh, spec))
 
     return jax.tree.map(place, pytrees)
 
 
 def column_parallel(fn: Callable, mesh: Mesh) -> Callable:
     """jit(fn) over column-sharded arguments (shard_columns), as one
-    program per device on that device's columns. Arguments are split
-    as shard_columns places them; every output is split on its leading
-    (column) axis."""
+    program per device on that device's columns. Leaves whose leading
+    axis is the column axis (length `column_count(args)`) are split
+    over the mesh, every other leaf is passed whole to each device;
+    every output is split on its leading (column) axis. The column
+    count must divide by the mesh size."""
     ndev = mesh.devices.size
 
     def run(*args):
-        specs = jax.tree.map(lambda x: _column_spec(x, ndev), args)
+        ncol = column_count(args)
+        if ncol % ndev:
+            raise ValueError(f"{ncol} columns do not divide over "
+                             f"{ndev} devices")
+        specs = jax.tree.map(
+            lambda x: P(AXIS) if _is_column_leaf(x, ncol) else P(), args)
         step = jax.shard_map(fn, mesh=mesh, in_specs=specs,
                              out_specs=P(AXIS), check_vma=False)
         return step(*args)

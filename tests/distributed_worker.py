@@ -7,7 +7,8 @@ with ECRAD_COORDINATOR / ECRAD_NUM_PROCESSES / ECRAD_PROCESS_ID set
 Each process reads ONLY its own column slice of the meridian input
 (read_input_sharded — the analogue of the reference's per-rank NetCDF
 read, ifs/easy_netcdf_read_mpi.F90:141-177), runs the full radiation
-step over the global 2-device mesh, and saves its addressable output
+step over the global 2-device mesh as one program per device
+(column_parallel), and saves its addressable output
 shards. The parent test reassembles and compares against a
 single-process run (the reference's MPI-count invariance,
 CHANGELOG:17-19).
@@ -30,6 +31,7 @@ def main(out_path):
     from ecrad_tpu.interface import radiation, setup_radiation
     from ecrad_tpu.parallel.scaling import (init_distributed,
                                             read_input_sharded)
+    from ecrad_tpu.parallel.sharding import column_mesh, column_parallel
 
     info = init_distributed()
     cfg = load_config_from_namelist(
@@ -41,7 +43,8 @@ def main(out_path):
     setup = setup_radiation(cfg)
     parts = read_input_sharded("/root/reference/test/ifs/ecrad_meridian.nc")
 
-    flux = jax.jit(lambda *a: radiation(setup, *a))(*parts)
+    flux = column_parallel(lambda *a: radiation(setup, *a),
+                           column_mesh())(*parts)
     out = {"process_index": np.int64(info["process_index"]),
            "process_count": np.int64(info["process_count"])}
     for key in FLUX_KEYS:

@@ -37,7 +37,8 @@ def test_sharded_matches_single_device(setup_and_inputs):
     """Column sharding must not change results (the reference's
     MPI-count-invariance, CHANGELOG:17-19)."""
     from ecrad_tpu.interface import radiation
-    from ecrad_tpu.parallel.sharding import column_mesh, shard_columns
+    from ecrad_tpu.parallel.sharding import (column_mesh, column_parallel,
+                                             shard_columns)
     setup, parts = setup_and_inputs
     assert len(jax.devices()) >= 8, "conftest should force 8 CPU devices"
 
@@ -46,7 +47,8 @@ def test_sharded_matches_single_device(setup_and_inputs):
 
     mesh = column_mesh(jax.devices()[:8])
     sharded = shard_columns(parts, mesh)
-    flux_sharded = fn(*sharded)
+    flux_sharded = column_parallel(lambda *a: radiation(setup, *a),
+                                   mesh)(*sharded)
 
     np.testing.assert_allclose(np.asarray(flux_single.lw_up),
                                np.asarray(flux_sharded.lw_up),
@@ -54,19 +56,6 @@ def test_sharded_matches_single_device(setup_and_inputs):
     np.testing.assert_allclose(np.asarray(flux_single.sw_dn),
                                np.asarray(flux_sharded.sw_dn),
                                rtol=0, atol=2e-3)
-
-
-@needs_ref
-def test_scaling_benchmark_reports(setup_and_inputs):
-    from ecrad_tpu.interface import radiation
-    from ecrad_tpu.parallel.scaling import scaling_benchmark
-    setup, parts = setup_and_inputs
-    results = scaling_benchmark(lambda *a: radiation(setup, *a), parts,
-                                device_counts=[1, 2], nrepeat=1)
-    assert [r["devices"] for r in results] == [1, 2]
-    for r in results:
-        assert r["columns_per_sec"] > 0
-        assert 0 < r["efficiency"] <= 2.0
 
 
 def test_init_distributed_single_host():
